@@ -1,0 +1,259 @@
+"""KeypointDiffusion sampling (kpdiff_tpu/models/diffusion.py:166-262, :424-621).
+
+The reverse-diffusion chain is a Python loop over the timestep grid (the
+JAX package's lax.scan); encode, the kk edge structure, compact_kk and the
+p(z_s | z_t) update follow the JAX package step for step. Sampling sends
+every dense edge type through the CUDA edge kernel, as the JAX package's
+sampler does with `dynamics.use_pallas_sampling`. The training loss is not
+ported yet.
+"""
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from kpdiff_tpu_torch.models.complex import PaddedComplex
+from kpdiff_tpu_torch.models.dynamics_egnn import EGNNDynamics
+from kpdiff_tpu_torch.models.nn import compute_dtype
+from kpdiff_tpu_torch.ops.geometry import masked_com
+from kpdiff_tpu_torch.ops.neighbors import dense_radius_adjacency, radius_neighbor_list
+from kpdiff_tpu_torch.ops.schedule import (
+    NoiseSchedule,
+    alpha_from_gamma,
+    sigma_and_alpha_t_given_s,
+    sigma_from_gamma,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class DiffusionConfig:
+    atom_nf: int
+    rec_nf: int
+    n_timesteps: int = 1000
+    precision: float = 1e-4
+    noise_schedule: str = "polynomial_2"
+    lig_feat_norm_constant: float = 1.0
+    rl_dist_threshold: float = 0.0
+    use_fake_atoms: bool = False
+    fake_atom_loss_semantics: str = "intent"
+    architecture: str = "egnn"
+    rec_encoder_type: str = "fixed"
+    graph_cutoffs: Dict[str, float] = dataclasses.field(
+        default_factory=lambda: {"rr": 3.5, "rk": 100.0, "kk": 8.0, "kl": 8.0, "ll": 9.0})
+    dynamics: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    rec_encoder: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    rec_encoder_loss: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+def dynamics_from_config(cfg: DiffusionConfig, gen: torch.Generator) -> EGNNDynamics:
+    """EGNNDynamics with the options kpdiff_tpu's KeypointDiffusion reads."""
+    dyn = dict(cfg.dynamics)
+    return EGNNDynamics(
+        atom_nf=cfg.atom_nf, rec_nf=cfg.rec_nf, gen=gen,
+        n_layers=dyn.get("n_layers", 6), hidden_nf=dyn.get("hidden_nf", 256),
+        use_tanh=dyn.get("use_tanh", False), message_norm=dyn.get("message_norm", 1),
+        update_kp_feat=dyn.get("update_kp_feat", False), norm=dyn.get("norm", False),
+        ll_k=dyn.get("ll_k", 0), kl_k=dyn.get("kl_k", 0),
+        ll_cutoff=cfg.graph_cutoffs.get("ll", 9.0),
+        compute_dtype=dyn.get("compute_dtype", "float32"), z_semantics=dyn.get("z_semantics", "intent"),
+    )
+
+
+class KeypointDiffusion(nn.Module):
+    """Learned-encoder EGNN keypoint diffusion: encode, compact_kk, sample.
+
+    Parameters are named as the JAX package's param tree
+    (`encoder.*`, `dynamics.*`), so `utils/params_io.py` loads its archives."""
+
+    def __init__(self, cfg: DiffusionConfig, seed: int = 0):
+        super().__init__()
+        if cfg.architecture != "egnn":
+            raise NotImplementedError(f"architecture {cfg.architecture!r} is not ported yet")
+        if cfg.rec_encoder_type != "learned":
+            raise NotImplementedError(f"rec_encoder_type {cfg.rec_encoder_type!r} is not ported yet")
+        self.cfg = cfg
+        self.schedule = NoiseSchedule.create(cfg.noise_schedule, cfg.n_timesteps, cfg.precision)
+        gen = torch.Generator().manual_seed(seed)
+        from kpdiff_tpu_torch.models.encoder_egnn import EGNNReceptorEncoder
+
+        enc = {k: v for k, v in cfg.rec_encoder.items() if k != "no_cg"}
+        self.encoder = EGNNReceptorEncoder(gen, graph_cutoffs=cfg.graph_cutoffs, **enc)
+        self.dynamics = dynamics_from_config(cfg, gen)
+        self.cd = compute_dtype(cfg.dynamics.get("compute_dtype", "float32"))
+        self._precast = None
+
+    # ---------------------------------------------------------------- encode
+
+    @torch.no_grad()
+    def encode(self, cpx: PaddedComplex):
+        """Encoder pass -> (complex with kp_* filled, kk edge structure)."""
+        cpx = self.encoder(cpx)
+        return cpx, self._kk_edges(cpx)
+
+    def _kk_edges(self, cpx: PaddedComplex):
+        layout = self.cfg.dynamics.get("kk_layout", "dense")
+        r = self.cfg.graph_cutoffs["kk"]
+        if layout == "dense":
+            return dense_radius_adjacency(cpx.kp_x, cpx.kp_mask, cpx.kp_x, cpx.kp_mask, r, exclude_self=True)
+        if layout == "nbr":
+            return radius_neighbor_list(cpx.kp_x, cpx.kp_mask, cpx.kp_x, cpx.kp_mask, r, 100, exclude_self=True)
+        raise NotImplementedError(f"kk_layout {layout!r} is not ported yet")
+
+    @torch.no_grad()
+    def compact_kk(self, cpx: PaddedComplex, kk, align: int = 8, min_cap: int = 0):
+        """Exact capped neighbor-list kk for sampling: the same edge set in a
+        smaller layout when the max degree rounded up to `align` is below K;
+        the dense adjacency unchanged otherwise. `min_cap` pins a grow-only cap."""
+        if isinstance(kk, tuple):
+            return kk
+        K = kk.shape[-1]
+        deg = int(torch.max(torch.sum(kk, dim=-1)).item())
+        cap = min(K, max(((deg + align - 1) // align) * align, align, min_cap))
+        if cap >= K:
+            return kk
+        return radius_neighbor_list(cpx.kp_x, cpx.kp_mask, cpx.kp_x, cpx.kp_mask,
+                                    self.cfg.graph_cutoffs["kk"], cap, exclude_self=True)
+
+    # ---------------------------------------------------------------- sample
+
+    def _sampling_dynamics(self) -> EGNNDynamics:
+        """The dynamics with pair-MLP weights cast to the compute dtype once
+        (kpdiff_tpu's precast_pair_params): edge modules and node MLPs; the
+        LayerNorms stay f32. Every use site casts to that dtype anyway."""
+        if self.cd == torch.float32:
+            return self.dynamics
+        key = tuple((p.data_ptr(), p._version) for p in self.dynamics.parameters())
+        if self._precast is None or self._precast[0] != key:
+            dyn = copy.deepcopy(self.dynamics)
+            for i in range(dyn.n_layers):
+                for name, mod in getattr(dyn, f"conv{i}").named_children():
+                    if name.startswith("edge_") or name == "kk_nbr":
+                        mod.to(self.cd)
+                    elif name.startswith("update_"):
+                        mod.node_mlp.to(self.cd)
+            self._precast = (key, dyn)
+        return self._precast[1]
+
+    @torch.no_grad()
+    def sample(self, cpx: PaddedComplex, kk_edges, init_com: Optional[torch.Tensor] = None,
+               return_every: int = 0, sample_steps: int = 0, eta: float = 1.0,
+               noise: Optional[Dict[str, Any]] = None, generator: Optional[torch.Generator] = None):
+        """Reverse diffusion from encoded receptors.
+
+        `sample_steps` K < T runs the strided grid; `eta` is the DDIM noise
+        scale (1.0 keeps the ancestral step verbatim); `noise` replaces every
+        draw (keys init_x, init_h, steps_x (K,B,N,3), steps_h (K,B,N,F));
+        otherwise noise comes from `generator` (a torch.Generator on the
+        complex's device). Returns lig_x, lig_h, kp_x, lig_mask and, with
+        `return_every`, frames_x / frames_h."""
+        cfg = self.cfg
+        dev = cpx.device
+        b = cpx.batch_size
+        dyn = self._sampling_dynamics()
+        f32 = torch.float32
+        lm = cpx.lig_mask[..., None].to(f32)
+        km = cpx.kp_mask[..., None].to(f32)
+
+        def tensor(a):
+            return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a, device=dev).to(f32)
+
+        def randn(shape):
+            return torch.randn(shape, generator=generator, device=dev, dtype=f32)
+
+        init_kp_com = masked_com(cpx.kp_x, cpx.kp_mask)
+        if init_com is None:
+            any_rec = torch.any(cpx.rec_mask, dim=1, keepdim=True)
+            init_com = torch.where(any_rec, masked_com(cpx.rec_x, cpx.rec_mask), init_kp_com)
+        else:
+            init_com = tensor(init_com)
+        kp_x = (cpx.kp_x - init_com[:, None]) * km
+
+        if noise is not None:
+            lig_x = tensor(noise["init_x"]) * lm
+            lig_h = tensor(noise["init_h"]) * lm
+        else:
+            lig_x = randn(cpx.lig_x.shape) * lm
+            lig_h = randn(cpx.lig_h.shape) * lm
+        com = masked_com(lig_x, cpx.lig_mask)
+        lig_x = (lig_x - com[:, None]) * lm
+        kp_x = (kp_x - com[:, None]) * km
+
+        T = cfg.n_timesteps
+        if sample_steps and sample_steps < T:
+            grid = np.unique(np.round(np.linspace(0, T, sample_steps + 1)).astype(np.int32))[::-1].copy()
+        else:
+            grid = np.arange(T, -1, -1)
+        steps = np.stack([grid[:-1], grid[1:]], axis=1)
+        if noise is not None:
+            steps_x, steps_h = tensor(noise["steps_x"]), tensor(noise["steps_h"])
+
+        frames = []
+        for i, (t_int, s_int) in enumerate(steps.tolist()):
+            s_arr = torch.full((b,), float(s_int), dtype=f32, device=dev) / T
+            t_arr = torch.full((b,), float(t_int), dtype=f32, device=dev) / T
+            gamma_s = self.schedule.gamma(s_arr)
+            gamma_t = self.schedule.gamma(t_arr)
+            sigma2_ts, sigma_ts, alpha_ts = sigma_and_alpha_t_given_s(gamma_t, gamma_s)
+            sigma_s = sigma_from_gamma(gamma_s)
+            sigma_t = sigma_from_gamma(gamma_t)
+
+            eps_h, eps_x = dyn(lig_x, lig_h, cpx.lig_mask, kp_x, cpx.kp_h, cpx.kp_mask, t_arr, kk_edges)
+
+            if eta == 1.0:
+                # reference ancestral step, kept verbatim
+                var_term = (sigma2_ts / alpha_ts / sigma_t)[:, None, None]
+                a_ts = alpha_ts[:, None, None]
+                mu_x = lig_x / a_ts - var_term * eps_x
+                mu_h = lig_h / a_ts - var_term * eps_h
+                sigma = (sigma_ts * sigma_s / sigma_t)[:, None, None]
+            else:
+                alpha_s = alpha_from_gamma(gamma_s)[:, None, None]
+                alpha_t = alpha_from_gamma(gamma_t)[:, None, None]
+                sig_t = sigma_t[:, None, None]
+                sig_s = sigma_s[:, None, None]
+                sig_n = eta * (sigma_ts * sigma_s / sigma_t)[:, None, None]
+                dir_coef = torch.sqrt(torch.clamp(sig_s ** 2 - sig_n ** 2, min=0.0))
+                mu_x = alpha_s * (lig_x - sig_t * eps_x) / alpha_t + dir_coef * eps_x
+                mu_h = alpha_s * (lig_h - sig_t * eps_h) / alpha_t + dir_coef * eps_h
+                sigma = sig_n
+
+            if noise is not None:
+                n_x, n_h = steps_x[i], steps_h[i]
+            else:
+                n_x, n_h = randn(lig_x.shape), randn(lig_h.shape)
+            lig_x = (mu_x + sigma * n_x) * lm
+            lig_h = (mu_h + sigma * n_h) * lm
+
+            com = masked_com(lig_x, cpx.lig_mask)
+            lig_x = (lig_x - com[:, None]) * lm
+            kp_x = (kp_x - com[:, None]) * km
+            if return_every and i % return_every == 0:
+                frames.append((lig_x, lig_h, kp_x))
+
+        kp_com = masked_com(kp_x, cpx.kp_mask)
+        lig_x = (lig_x - kp_com[:, None] + init_kp_com[:, None]) * lm
+        kp_x = (kp_x - kp_com[:, None] + init_kp_com[:, None]) * km
+        lig_h = lig_h * cfg.lig_feat_norm_constant
+
+        out = {"lig_x": lig_x, "lig_h": lig_h, "kp_x": kp_x, "lig_mask": cpx.lig_mask}
+        if cfg.use_fake_atoms:
+            out["lig_mask"] = remove_fake_atoms(lig_h, cpx.lig_mask)
+        if return_every:
+            f_x = torch.stack([f[0] for f in frames])
+            f_h = torch.stack([f[1] for f in frames])
+            f_kp = torch.stack([f[2] for f in frames])
+            f_kp_com = torch.stack([masked_com(k, cpx.kp_mask) for k in f_kp])  # (F, B, 3)
+            out["frames_x"] = (f_x - f_kp_com[:, :, None] + init_kp_com[None, :, None]) * lm[None]
+            out["frames_h"] = f_h * cfg.lig_feat_norm_constant
+        return out
+
+
+def remove_fake_atoms(lig_h: torch.Tensor, lig_mask: torch.Tensor) -> torch.Tensor:
+    """Mask out atoms whose argmax feature is the fake-atom class (last channel)."""
+    fake = torch.argmax(lig_h, dim=-1) == (lig_h.shape[-1] - 1)
+    return lig_mask & ~fake

@@ -1,0 +1,159 @@
+"""EGNN noise-prediction dynamics (kpdiff_tpu/models/dynamics_egnn.py:70-365).
+
+Ligand-ligand edges are a dense radius grid and keypoint-ligand edges a kNN
+pair list, both rebuilt from current positions on every call; the kk edge
+structure comes in from the encoder, dense (B, K, K) or a neighbor list
+(idx, valid). The timestep is appended as a feature channel, so the working
+width is hidden_nf + 1. Every dense edge type (ll, and kk while dense) goes
+through the CUDA edge kernel, as the JAX package's sampler does with
+`dynamics.use_pallas_sampling`.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from kpdiff_tpu_torch.models.egnn import EGNNEdgeDense, EGNNEdgeKNNPairs, EGNNEdgeNbrList, NodeUpdate
+from kpdiff_tpu_torch.models.nn import MLP
+from kpdiff_tpu_torch.ops.neighbors import dense_radius_adjacency, knn_indices
+
+
+class EGNNConvLayer(nn.Module):
+    """One heterograph EGNN layer: dense ll, kNN-pair kl (and lk, kk with
+    update_kp_feat)."""
+
+    def __init__(self, hidden_size: int, gen: torch.Generator, use_tanh: bool, update_kp_feat: bool,
+                 norm: bool, dtype: str = "float32"):
+        super().__init__()
+        h = hidden_size
+        self.update_kp_feat = update_kp_feat
+        dense = dict(use_tanh=use_tanh, coords_range=10.0, dtype=dtype)
+        self.edge_ll = EGNNEdgeDense(h, h, gen, **dense)
+        self.edge_kl = EGNNEdgeKNNPairs(h, h, gen, anchor_is_src=True, use_tanh=use_tanh, dtype=dtype)
+        if update_kp_feat:
+            self.edge_lk = EGNNEdgeKNNPairs(h, h, gen, anchor_is_src=False, use_tanh=use_tanh, dtype=dtype)
+            # kk dispatches on its structure: a dense adjacency goes to edge_kk,
+            # a neighbor list to kk_nbr, which shares edge_kk's parameters
+            self.edge_kk = EGNNEdgeDense(h, h, gen, **dense)
+            self.kk_nbr = EGNNEdgeNbrList(h, h, gen, use_tanh=use_tanh, dtype=dtype)
+            for name, p in self.edge_kk.named_parameters():
+                setattr(self.kk_nbr, name, p)
+        self.update_lig = NodeUpdate(h, h, h, gen, norm=norm, dtype=dtype)
+        if update_kp_feat:
+            self.update_kp = NodeUpdate(h, h, h, gen, norm=norm, dtype=dtype)
+
+    def forward(self, h, x, edges, z, masks):
+        agg_h = {"lig": 0.0, "kp": 0.0}
+        agg_x = {"lig": 0.0, "kp": 0.0}
+
+        def add(dst, out):
+            agg_h[dst] = agg_h[dst] + out[0]
+            agg_x[dst] = agg_x[dst] + out[1]
+
+        add("lig", self.edge_ll(h["lig"], h["lig"], x["lig"], x["lig"], edges["ll"]))
+        idx, valid = edges["kl_pairs"]
+        add("lig", self.edge_kl(h["kp"], h["lig"], x["kp"], x["lig"], idx, valid))
+        if self.update_kp_feat:
+            add("kp", self.edge_lk(h["kp"], h["lig"], x["kp"], x["lig"], idx, valid))
+            kk = edges["kk"]
+            if isinstance(kk, tuple):
+                idx, valid = kk
+                add("kp", self.kk_nbr(h["kp"], h["kp"], x["kp"], x["kp"], idx, valid))
+            else:
+                add("kp", self.edge_kk(h["kp"], h["kp"], x["kp"], x["kp"], kk))
+
+        updated = ["lig", "kp"] if self.update_kp_feat else ["lig"]
+        h_out, x_out = dict(h), dict(x)
+        for ntype in updated:
+            hn = agg_h[ntype] / z[ntype]
+            xn = agg_x[ntype] / z[ntype]
+            new_h = getattr(self, f"update_{ntype}")(h[ntype], hn)
+            m = masks[ntype][..., None].to(new_h.dtype)
+            h_out[ntype] = new_h * m
+            x_out[ntype] = (x[ntype] + xn) * m
+        return h_out, x_out
+
+
+class EGNNDynamics(nn.Module):
+    """Encode features, append t, run n_layers hetero EGNN layers, decode
+    noise predictions (kpdiff_tpu/models/dynamics_egnn.py:194-365)."""
+
+    def __init__(self, atom_nf: int, rec_nf: int, gen: torch.Generator, n_layers: int = 6,
+                 hidden_nf: int = 256, use_tanh: bool = False, message_norm: float = 1.0,
+                 update_kp_feat: bool = False, norm: bool = False, ll_k: int = 0, kl_k: int = 0,
+                 ll_cutoff: float = 9.0, compute_dtype: str = "float32",
+                 z_semantics: str = "intent"):
+        super().__init__()
+        if ll_k > 0:
+            raise NotImplementedError("ll_k > 0 (kNN ll edges) is not ported yet")
+        if kl_k <= 0:
+            raise NotImplementedError("kl_k == 0 (dense radius kl edges) is not ported yet")
+        self.n_layers = n_layers
+        self.message_norm = message_norm
+        self.update_kp_feat = update_kp_feat
+        self.kl_k = kl_k
+        self.ll_cutoff = ll_cutoff
+        self.z_semantics = z_semantics
+        self.lig_encoder = MLP(atom_nf, [64, hidden_nf], ["silu", "silu"], gen)
+        self.kp_encoder = (MLP(rec_nf, [2 * rec_nf, hidden_nf], ["silu", "silu"], gen)
+                           if rec_nf != hidden_nf else None)
+        for i in range(n_layers):
+            self.add_module(f"conv{i}", EGNNConvLayer(
+                hidden_nf + 1, gen, use_tanh=use_tanh, update_kp_feat=update_kp_feat, norm=norm,
+                dtype=compute_dtype))
+        self.lig_decoder = MLP(hidden_nf, [2 * atom_nf, atom_nf], ["silu", ""], gen)
+
+    def forward(self, lig_x, lig_h, lig_mask, kp_x, kp_h, kp_mask, t, kk_edges=None):
+        b, nl = lig_mask.shape
+        k = kp_mask.shape[1]
+        lig_feat = self.lig_encoder(lig_h)
+        kp_feat = self.kp_encoder(kp_h) if self.kp_encoder is not None else kp_h
+
+        t_col = t.to(lig_feat.dtype)[:, None, None]
+        lig_feat = torch.cat([lig_feat, t_col.expand(b, nl, 1)], dim=-1) * lig_mask[..., None]
+        kp_feat = torch.cat([kp_feat, t_col.expand(b, k, 1).to(kp_feat.dtype)], dim=-1) * kp_mask[..., None]
+
+        ll = dense_radius_adjacency(lig_x, lig_mask, lig_x, lig_mask, self.ll_cutoff, exclude_self=True)
+        edges: Dict[str, object] = {"ll": ll}
+        # per-keypoint k nearest ligand atoms as an explicit pair list
+        kl_idx, _dist, kl_valid = knn_indices(lig_x, lig_mask, kp_x, kp_mask, self.kl_k)
+        kl_valid = kl_valid & kp_mask[:, :, None]
+        edges["kl_pairs"] = (kl_idx, kl_valid)
+        e_kl = torch.sum(kl_valid, dim=(1, 2))
+        if self.update_kp_feat:
+            if kk_edges is None:
+                raise ValueError("kk_edges required when update_kp_feat=True")
+            edges["kk"] = kk_edges
+
+        z = {}
+        if self.message_norm == 0 and self.z_semantics == "executed":
+            z["lig"] = z["kp"] = 1.0
+        elif self.message_norm == 0:
+            n_lig = torch.clamp(torch.sum(lig_mask, dim=1), min=1)
+            e_lig = torch.sum(ll, dim=(1, 2)) + e_kl
+            z["lig"] = (e_lig / n_lig + 1.0)[:, None, None]
+            if self.update_kp_feat:
+                n_kp = torch.clamp(torch.sum(kp_mask, dim=1), min=1)
+                kk = edges["kk"]
+                e_kk = torch.sum(kk[1] if isinstance(kk, tuple) else kk, dim=(1, 2))
+                z["kp"] = ((e_kl + e_kk) / n_kp + 1.0)[:, None, None]
+            else:
+                z["kp"] = 1.0
+        else:
+            z["lig"] = z["kp"] = float(self.message_norm)
+
+        h = {"lig": lig_feat, "kp": kp_feat}
+        x = {"lig": lig_x, "kp": kp_x}
+        masks = {"lig": lig_mask, "kp": kp_mask}
+        kp_h0, kp_x0 = kp_feat, kp_x
+        for i in range(self.n_layers):
+            if not self.update_kp_feat:
+                h["kp"], x["kp"] = kp_h0, kp_x0
+            h, x = getattr(self, f"conv{i}")(h, x, edges, z, masks)
+
+        eps_h = self.lig_decoder(h["lig"][..., :-1])
+        eps_x = x["lig"] - lig_x
+        m = lig_mask[..., None]
+        return eps_h * m, eps_x * m

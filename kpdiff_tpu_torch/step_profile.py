@@ -1,0 +1,89 @@
+"""Where the port's reverse-diffusion steps spend their time on the card.
+
+    python3 -m kpdiff_tpu_torch.step_profile [--buckets 16 32 48] [--params NPZ] [--out FILE]
+
+Builds configs/egnn_40kp.yml at full width and depth (seeded random weights
+unless --params names a keystr npz), encodes a synthetic batch of 128
+pockets per ligand bucket, and runs 10 strided sampling steps under
+torch.profiler. Prints, per bucket, the wall time per step, the device time
+per step summed over kernels, their ratio (the device's busy share) and the
+kernels that take the most device time; --out also writes the tables to
+a file.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from pathlib import Path
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from kpdiff_tpu_torch.config import PaddingConfig, load_config, model_from_config
+from kpdiff_tpu_torch.models.complex import synthetic_batch
+from kpdiff_tpu_torch.utils.params_io import load_params, read_keystr_npz
+
+CONFIG = "configs/egnn_40kp.yml"
+BATCH = 128
+STEPS = 10
+TOP = 15  # kernels listed per bucket
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--params", default=None)
+    ap.add_argument("--buckets", type=int, nargs="+", default=[16, 32, 48])
+    ap.add_argument("--out", default=None, help="also write the report to this path")
+    args = ap.parse_args()
+
+    cfg = load_config(CONFIG)
+    model = model_from_config(cfg, device="cuda")
+    if args.params:
+        load_params(model, read_keystr_npz(args.params))
+    model.eval()
+    pad = PaddingConfig.from_config(cfg)
+    dev = next(model.parameters()).device
+    report = [f"{torch.cuda.get_device_name(0)}; {CONFIG}; weights "
+              f"{args.params or 'random seed 0'}; batch {BATCH}; {STEPS} steps"]
+    for n_lig in args.buckets:
+        cpx = synthetic_batch(0, batch=BATCH, n_rec_pad=pad.n_rec, n_lig_pad=n_lig, n_rec_feat=10,
+                              n_lig_feat=10, n_kp=pad.n_kp, kp_feat_dim=model.cfg.rec_nf, n_ip_pad=pad.n_ip,
+                              min_rec=260, min_lig=min(18, n_lig - 2), device=dev)
+        enc, kk = model.encode(cpx)
+        kk = model.compact_kk(enc, kk)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model.sample(enc, kk, sample_steps=2, generator=gen)  # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.sample(enc, kk, sample_steps=STEPS, generator=gen)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # kernel rows only: an operator's row repeats the time of the kernels it launched
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+        device_s = sum(_device_us(e) for e in events) * 1e-6
+        events.sort(key=_device_us, reverse=True)
+        lines = [f"bucket {n_lig}: kk={'nbr' if isinstance(kk, tuple) else 'dense'} "
+                 f"wall {wall / STEPS * 1e3:.3f} ms/step (profiled), device {device_s / STEPS * 1e3:.3f} "
+                 f"ms/step, busy share {device_s / wall:.3f}"]
+        for e in events[:TOP]:
+            us = _device_us(e)
+            lines.append(f"  {us / STEPS / 1e3:9.4f} ms/step {us * 1e-6 / device_s * 100:6.2f}%  "
+                         f"{e.count // STEPS:5d}/step  {e.key[:90]}")
+        print("\n".join(lines), flush=True)
+        report.extend(lines)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text("\n".join(report) + "\n")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,98 @@
+"""The port against the torch-free goldens that need no training path, read
+with tests/parity_jax.py::unflatten_case and held to the tolerances each
+case carries (as assert_case reads them for the JAX runner), and the port's
+serving API on the CPU."""
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from kpdiff_tpu.config import load_config as jload
+from kpdiff_tpu_torch.config import model_from_config as tmodel
+from kpdiff_tpu_torch.models.complex import make_complex, synthetic_batch as tsyn
+from kpdiff_tpu_torch.models.diffusion import DiffusionConfig, KeypointDiffusion, dynamics_from_config
+from kpdiff_tpu_torch.ops.cuda import egnn_edge
+from kpdiff_tpu_torch.ops.neighbors import dense_radius_adjacency
+from kpdiff_tpu_torch.serve import KeypointSampler
+from kpdiff_tpu_torch.utils.params_io import export_flat, load_params, read_golden_params
+from parity_jax import unflatten_case
+from torch_port_util import assert_close, t
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_serving_api(tmp_path):
+    """from_params on a reduced egnn_40kp config and a keystr npz archive."""
+    cfg = jload(ROOT / "configs/egnn_40kp.yml")
+    cfg["dynamics"].update(n_layers=2, hidden_nf=16)
+    cfg["rec_encoder"].update(n_convs=2, hidden_n_node_feat=16, out_n_node_feat=12)
+    cfg["graph"]["n_keypoints"] = 6
+    cfg["diffusion"]["n_timesteps"] = 8
+    cfg_path = tmp_path / "reduced.yml"
+    cfg_path.write_text(yaml.safe_dump(cfg))
+    npz = tmp_path / "params.npz"
+    flat = export_flat(tmodel(cfg, device="cpu", seed=9))
+    np.savez(npz, **{"".join(f"['{p}']" for p in k.split(".")): v for k, v in flat.items()})
+    sampler = KeypointSampler.from_params(cfg_path, npz, batch_size=4, device="cpu", seed=3)
+    assert sampler.lig_buckets == [8, 16, 24, 32, 40, 48]
+    pocket = tsyn(5, batch=1, n_rec_pad=40, n_lig_pad=12, n_kp=6, kp_feat_dim=12, min_rec=35)
+    n_rec = int(pocket.rec_mask.sum())
+    before = egnn_edge.launches
+    mols = sampler.sample_for_arrays(pocket.rec_x[0, :n_rec].numpy(), pocket.rec_h[0, :n_rec].numpy(),
+                                     pocket.rec_res_idx[0, :n_rec].numpy(), init_com=np.zeros(3, np.float32),
+                                     n_mols=6, ligand_size=11)
+    assert egnn_edge.launches == before
+    assert len(mols) == 6
+    for coords, elements in mols:
+        assert coords.shape == (11, 3) and np.isfinite(coords).all()
+        assert len(elements) == 11 and set(elements) <= set(cfg["dataset"]["lig_elements"])
+    with pytest.raises(NotImplementedError):
+        sampler.sample_for_arrays(pocket.rec_x[0].numpy(), pocket.rec_h[0].numpy(), ligand_size="random")
+
+
+GOLDENS = ["egnn_dynamics_mn0", "egnn_dynamics_mn1", "egnn_encoder", "refexec_chain_learned_egnn",
+           "refexec_chain_two_pockets_egnn"]
+
+
+@pytest.mark.parametrize("name", GOLDENS)
+def test_golden_case(name):
+    with np.load(ROOT / "tests/golden" / f"{name}.npz") as z:
+        kind, meta, _, inputs, expected = unflatten_case(z)
+        flat = read_golden_params(z)
+    cfg = DiffusionConfig(**meta["config"])
+    if kind == "egnn_dynamics":
+        dyn = dynamics_from_config(cfg, torch.Generator())
+        load_params(dyn, flat)
+        lig_x, lig_h, kp_x, kp_h = (t(inputs[k])[None] for k in ("lig_x", "lig_h", "kp_x", "kp_h"))
+        lig_mask = torch.ones(lig_x.shape[:2], dtype=torch.bool)
+        kp_mask = torch.ones(kp_x.shape[:2], dtype=torch.bool)
+        kk = dense_radius_adjacency(kp_x, kp_mask, kp_x, kp_mask, meta["kk_cut"], exclude_self=True)
+        with torch.no_grad():
+            eps_h, eps_x = dyn(lig_x, lig_h, lig_mask, kp_x, kp_h, kp_mask, torch.full((1,), meta["t_val"]), kk)
+        got = {"eps_h": eps_h[0], "eps_x": eps_x[0]}
+    elif kind == "egnn_encoder":
+        model = KeypointDiffusion(cfg)
+        load_params(model.encoder, flat)
+        x0 = inputs["rec_x"]
+        n = x0.shape[0]
+        cpx = tsyn(0, batch=1, n_rec_pad=n, n_lig_pad=6, n_rec_feat=inputs["rec_h"].shape[1], n_lig_feat=5,
+                   n_kp=meta["n_kp"], kp_feat_dim=meta["kp_feat_dim"], min_rec=n, min_lig=6)
+        cpx = cpx.replace(rec_x=t(x0)[None], rec_h=t(inputs["rec_h"])[None],
+                          rec_res_idx=t(inputs["rec_res_idx"].astype(np.int32))[None])
+        enc, _ = model.encode(cpx)
+        got = {"kp_x": enc.kp_x[0], "kp_h": enc.kp_h[0]}
+    else:
+        assert kind == "chain_sample"
+        model = KeypointDiffusion(cfg)
+        load_params(model, flat)
+        lig_mask = inputs["lig_mask"].astype(bool)
+        b, n_pad = lig_mask.shape
+        cpx = make_complex(inputs["rec_x"], inputs["rec_h"], inputs["rec_mask"].astype(bool),
+                           np.zeros((b, n_pad, 3), np.float32), np.zeros((b, n_pad, cfg.atom_nf), np.float32),
+                           lig_mask, n_kp=meta["n_kp"], kp_feat_dim=meta["kp_feat_dim"])
+        enc, kk = model.encode(cpx)
+        got = model.sample(enc, kk, noise={k: inputs[k] for k in ("init_x", "init_h", "steps_x", "steps_h")})
+    for k, v in expected.items():
+        assert_close(got[k], v, rtol=meta.get("rtol", 5e-4), atol=meta.get("atol", 1e-4), msg=f"{name}:{k}")
