@@ -8,7 +8,9 @@ Phases, each timed on its own line; any failure raises (non-zero exit):
      kpdiff_tpu_torch/_build/ (loaded with ctypes);
   3. kernel: the dense EGNN edge kernel against its plain PyTorch version
      on seeded random inputs at the flagship shapes (B=128, H=257, Ns=Nd in
-     16/32/48 for ll and 40 for kk), bf16 and f32, with times;
+     16/32/48 for ll and 40 for kk) and with many sources (B=16, Nd=48,
+     Ns=192 and 384, as block kk windows and large dense kk give it), bf16
+     and f32, with times;
   4. slice: configs/egnn_40kp.yml at full width and depth, batch 128, ligand
      buckets 16/32/48: encode -> compact_kk -> 250-step strided sampling
      through the kernel, launch counts checked; then the kernel held against
@@ -202,8 +204,9 @@ def main():
     rng = np.random.default_rng(args.seed)
     h = 257
     shape_rows = []
-    for label, n in (("ll16", 16), ("ll32", 32), ("ll48", 48), ("kk40", 40)):
-        base = random_args(rng, BATCH, n, n, h, dev)
+    for label, b, ns, nd in (("ll16", BATCH, 16, 16), ("ll32", BATCH, 32, 32), ("ll48", BATCH, 48, 48),
+                             ("kk40", BATCH, 40, 40), ("ns192_nd48", 16, 192, 48), ("ns384_nd48", 16, 384, 48)):
+        base = random_args(rng, b, ns, nd, h, dev)
         for cd in (torch.bfloat16, torch.float32):
             shape_rows.append(measure(with_dtype(base, cd), cd, f"random_{label}", iters=20 if cd == torch.bfloat16 else 3))
         del base

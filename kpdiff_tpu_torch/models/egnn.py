@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from kpdiff_tpu_torch.models.nn import MLP, LayerNorm, compute_dtype, uniform_, xavier_uniform_scaled
-from kpdiff_tpu_torch.ops.cuda.egnn_edge import egnn_edge_dense, pad_weight
+from kpdiff_tpu_torch.ops.cuda.egnn_edge import egnn_edge_dense, egnn_edge_dense_plain, pad_weight
 from kpdiff_tpu_torch.ops.neighbors import gather_rows
 
 
@@ -84,7 +84,10 @@ class EGNNEdgeDense(_EdgeParams):
     The per-node first-layer projections are f32 matrix products here, as
     in the JAX package's Pallas path; the per-pair work goes through
     `ops/cuda/egnn_edge.py`: the CUDA kernel on a CUDA tensor, its plain
-    version on a CPU tensor.
+    version on a CPU tensor. Where autograd records (grad enabled and a
+    parameter or input that requires grad) the module runs the plain
+    version on its parameters instead, so that training gets gradients;
+    sampling and encoding run under no_grad and take the kernel.
     """
 
     def __init__(self, f_in: int, hidden_size: int, gen: torch.Generator, use_tanh: bool = False,
@@ -120,16 +123,25 @@ class EGNNEdgeDense(_EdgeParams):
 
     def forward(self, h_src, h_dst, x_src, x_dst, adj):
         f32 = torch.float32
-        w = self._kernel_weights()
         hs, hd = h_src.to(f32), h_dst.to(f32)
+        xs, xd, adj = x_src.to(f32).contiguous(), x_dst.to(f32).contiguous(), adj.contiguous()
+        kw = dict(use_tanh=self.use_tanh, coords_range=self.coords_range, compute_dtype=self.cd)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (*self.parameters(), h_src, h_dst, x_src, x_dst)):
+            # Training: the plain version on the parameters themselves, so
+            # autograd reaches all of them (the JAX package trains through
+            # its XLA path; the kernel is forward-only there and here).
+            return egnn_edge_dense_plain(
+                hs @ self.edge_w_src, hd @ self.edge_w_dst + self.edge_b,
+                hs @ self.coord_w_src, hd @ self.coord_w_dst + self.coord_b,
+                self.edge_w_dij[0], self.coord_w_dij[0], self.edge_lin2_w, self.edge_lin2_b,
+                self.attn_w[:, 0], self.attn_b, self.coord_lin2_w, self.coord_lin2_b, self.coord_out_w[:, 0],
+                xs, xd, adj, **kw)
+        w = self._kernel_weights()
         return egnn_edge_dense(
             hs @ w["edge_w_src"], hd @ w["edge_w_dst"] + w["edge_b"],
             hs @ w["coord_w_src"], hd @ w["coord_w_dst"] + w["coord_b"],
             w["w_edij"], w["w_cdij"], w["w2e"], w["b2e"], w["attw"], w["atb"],
-            w["w2c"], w["b2c"], w["wout"],
-            x_src.to(f32).contiguous(), x_dst.to(f32).contiguous(), adj.contiguous(),
-            use_tanh=self.use_tanh, coords_range=self.coords_range, compute_dtype=self.cd,
-        )
+            w["w2c"], w["b2c"], w["wout"], xs, xd, adj, **kw)
 
 
 class EGNNEdgeKNNPairs(_EdgeParams):

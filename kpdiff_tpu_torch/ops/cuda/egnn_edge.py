@@ -2,9 +2,11 @@
 
 Replaces the TPU kernel `kpdiff_tpu/ops/pallas/egnn_edge.py::
 fused_dense_edge_split` (body `_kernel`, `pl.pallas_call` at line 174). The
-CUDA source is `kpdiff_tpu_torch/csrc/egnn_edge.cu`; its header comment says
-what bounds the kernel (tensor-core FLOPs of the two H x H second layers per
-pair) and how it keeps every per-pair tensor out of device memory.
+CUDA source is `kpdiff_tpu_torch/csrc/egnn_edge.cu` (kernel v4); its header
+comment says what bounds the kernel (tensor-core FLOPs of the two H x H
+second layers per pair) and how it keeps every per-pair tensor out of device
+memory. Its shared memory does not grow with Ns or Nd: only the width is
+limited.
 
 `egnn_edge_dense` is the entry: on CUDA tensors it launches the kernel (built
 with nvcc at first use into `kpdiff_tpu_torch/_build/`, loaded with ctypes)
@@ -15,6 +17,7 @@ the kernel to the plain version. `launches` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import subprocess
 import threading
@@ -27,8 +30,10 @@ launches = 0  # kernel launches made by egnn_edge_dense (CUDA tensors only)
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "egnn_edge.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
-_LIB_NAME = "libegnn_edge.so"
-_lib = None
+# the in-kernel phases of the profiling build, in the order of csrc's `enum Phase`
+PHASES = ("setup", "w2_copy", "layer1", "product", "epilogue", "aggregation", "barrier")
+MAX_SOURCES = 0xFFFF  # the kernel packs a source index into 16 bits
+_libs = {}  # phase_clocks (bool) -> loaded library
 _lock = threading.Lock()
 
 
@@ -58,17 +63,22 @@ def _nvcc() -> str:
     return found
 
 
-def build(verbose: bool = False) -> Path:
+def build(verbose: bool = False, phase_clocks: bool = False) -> Path:
     """Compile csrc/egnn_edge.cu for sm_90a into _build/ unless it is current.
 
-    Returns the shared library's path; raises with nvcc's output on failure."""
-    lib = BUILD_DIR / _LIB_NAME
+    phase_clocks=True builds the profiling library (-DEGNN_EDGE_PHASE_CLOCKS),
+    a second file beside the production one. Returns the shared library's
+    path; raises with nvcc's output on failure."""
+    name = "libegnn_edge_clocks.so" if phase_clocks else "libegnn_edge.so"
+    lib = BUILD_DIR / name
     if lib.exists() and lib.stat().st_mtime >= SOURCE.stat().st_mtime:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{_LIB_NAME}.{os.getpid()}.tmp"
+    tmp = BUILD_DIR / f"{name}.{os.getpid()}.tmp"
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)]
+    if phase_clocks:
+        cmd.insert(1, "-DEGNN_EDGE_PHASE_CLOCKS")
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
@@ -78,22 +88,40 @@ def build(verbose: bool = False) -> Path:
     return lib
 
 
-def _load():
-    global _lib
+def _load(phase_clocks: bool = False):
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+        if phase_clocks not in _libs:
+            lib = ctypes.CDLL(str(build(phase_clocks=phase_clocks)))
             vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.egnn_edge_dense_launch.argtypes = [vp] * 18 + [i, i, i, i, i, i, f, i, vp]
             lib.egnn_edge_dense_launch.restype = i
-            lib.egnn_edge_dense_smem_bytes.argtypes = [i, i, i]
+            lib.egnn_edge_dense_smem_bytes.argtypes = [i, i]
             lib.egnn_edge_dense_smem_bytes.restype = ctypes.c_size_t
             lib.egnn_edge_dense_max_hp.argtypes = []
             lib.egnn_edge_dense_max_hp.restype = i
             lib.egnn_edge_error_string.argtypes = [i]
             lib.egnn_edge_error_string.restype = ctypes.c_char_p
-            _lib = lib
-    return _lib
+            if phase_clocks:
+                lib.egnn_edge_phase_clocks_read.argtypes = [vp]
+                if lib.egnn_edge_phase_clocks_count() != len(PHASES):
+                    raise RuntimeError("the profiling build's phases differ from PHASES")
+            _libs[phase_clocks] = lib
+    return _libs[phase_clocks]
+
+
+@functools.lru_cache(maxsize=None)
+def _width_check(phase_clocks: bool, device_index: int, hp: int, bf16: bool):
+    """Raise unless the kernel takes padded width hp: the library's width
+    limit, and its shared memory (which does not depend on Ns or Nd) against
+    the card's opt-in limit. Cached per (library, device, width, mode): it
+    queries the device."""
+    lib = _load(phase_clocks)
+    if hp > lib.egnn_edge_dense_max_hp():
+        raise ValueError(f"padded width {hp} exceeds the kernel's limit {lib.egnn_edge_dense_max_hp()}")
+    smem = lib.egnn_edge_dense_smem_bytes(hp, int(bf16))
+    limit = getattr(torch.cuda.get_device_properties(device_index), "shared_memory_per_block_optin", None)
+    if limit is not None and smem > limit:
+        raise ValueError(f"HP={hp} needs {smem} bytes of shared memory, the card offers {limit}")
 
 
 def egnn_edge_dense_plain(a_es, a_ed, a_cs, a_cd, w_edij, w_cdij, w2e, b2e, attw, atb,
@@ -151,25 +179,45 @@ def egnn_edge_dense(a_es, a_ed, a_cs, a_cd, w_edij, w_cdij, w2e, b2e, attw, atb,
     atb (1). x_s (B,Ns,3), x_d (B,Nd,3); adj (B,Ns,Nd) bool.
     """
     global launches
+    args = (a_es, a_ed, a_cs, a_cd, w_edij, w_cdij, w2e, b2e, attw, atb, w2c, b2c, wout, x_s, x_d, adj)
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"compute_dtype {compute_dtype} is not supported (float32, bfloat16)")
-    h = a_es.shape[-1]
-    hp = padded_width(h)
-    for name, t in (("w2e", w2e), ("w2c", w2c)):
-        _check(name, t, (hp, hp), compute_dtype, a_es.device)
     if a_es.device.type == "cpu":
-        return egnn_edge_dense_plain(a_es, a_ed, a_cs, a_cd, w_edij, w_cdij, w2e, b2e, attw, atb,
-                                     w2c, b2c, wout, x_s, x_d, adj, use_tanh=use_tanh,
-                                     coords_range=coords_range, compute_dtype=compute_dtype)
+        hp = padded_width(a_es.shape[-1])
+        for name, t in (("w2e", w2e), ("w2c", w2c)):
+            _check(name, t, (hp, hp), compute_dtype, a_es.device)
+        return egnn_edge_dense_plain(*args, use_tanh=use_tanh, coords_range=coords_range,
+                                     compute_dtype=compute_dtype)
     if a_es.device.type != "cuda":
         raise ValueError(f"egnn_edge_dense runs on CUDA or CPU tensors, got {a_es.device}")
+    out = _launch(False, args, use_tanh, coords_range, compute_dtype)
+    launches += 1
+    return out
 
+
+def phase_clocks(*args, use_tanh: bool, coords_range: float, compute_dtype: torch.dtype) -> dict:
+    """One launch of the profiling build on CUDA tensors (egnn_edge_dense's
+    arguments): {phase: SM clocks summed over the launch's warps}. Not counted
+    in `launches`; the production library is not involved."""
+    lib = _load(phase_clocks=True)
+    err = lib.egnn_edge_phase_clocks_reset()
+    if err == 0:
+        _launch(True, args, use_tanh, coords_range, compute_dtype)
+        torch.cuda.synchronize()
+        buf = (ctypes.c_ulonglong * len(PHASES))()
+        err = lib.egnn_edge_phase_clocks_read(ctypes.addressof(buf))
+    if err != 0:
+        raise RuntimeError(f"phase clocks: {lib.egnn_edge_error_string(err).decode()} ({err})")
+    return dict(zip(PHASES, (int(v) for v in buf)))
+
+
+def _launch(clocks: bool, args, use_tanh, coords_range, compute_dtype):
+    (a_es, a_ed, a_cs, a_cd, w_edij, w_cdij, w2e, b2e, attw, atb, w2c, b2c, wout, x_s, x_d, adj) = args
     dev = a_es.device
-    b, ns, _ = a_es.shape
+    b, ns, h = a_es.shape
     nd = a_ed.shape[1]
-    lib = _load()
-    if hp > lib.egnn_edge_dense_max_hp():
-        raise ValueError(f"width {h} exceeds the kernel's limit {lib.egnn_edge_dense_max_hp()}")
+    hp = padded_width(h)
+    bf16 = compute_dtype == torch.bfloat16
     f32 = torch.float32
     for name, t, shape in (("a_es", a_es, (b, ns, h)), ("a_ed", a_ed, (b, nd, h)),
                            ("a_cs", a_cs, (b, ns, h)), ("a_cd", a_cd, (b, nd, h)),
@@ -179,14 +227,14 @@ def egnn_edge_dense(a_es, a_ed, a_cs, a_cd, w_edij, w_cdij, w2e, b2e, attw, atb,
                            ("x_s", x_s, (b, ns, 3)), ("x_d", x_d, (b, nd, 3))):
         _check(name, t, shape, f32, dev)
     for name, t in (("w2e", w2e), ("w2c", w2c)):
+        _check(name, t, (hp, hp), compute_dtype, dev)
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: not 16-byte aligned")
     _check("adj", adj, (b, ns, nd), torch.bool, dev)
-    props = torch.cuda.get_device_properties(dev)
-    smem = lib.egnn_edge_dense_smem_bytes(ns, hp, int(compute_dtype == torch.bfloat16))
-    limit = getattr(props, "shared_memory_per_block_optin", None)
-    if limit is not None and smem + 64 > limit:
-        raise ValueError(f"Ns={ns}, H={h} need {smem} bytes of shared memory, the card offers {limit}")
+    if ns > MAX_SOURCES:
+        raise ValueError(f"Ns={ns} exceeds the kernel's limit {MAX_SOURCES} (16-bit source index)")
+    lib = _load(clocks)
+    _width_check(clocks, dev.index if dev.index is not None else torch.cuda.current_device(), hp, bf16)
 
     agg_h = torch.empty((b, nd, h), dtype=f32, device=dev)
     agg_x = torch.empty((b, nd, 3), dtype=f32, device=dev)
@@ -195,10 +243,8 @@ def egnn_edge_dense(a_es, a_ed, a_cs, a_cd, w_edij, w_cdij, w2e, b2e, attw, atb,
         ptrs = [t.data_ptr() for t in (a_es, a_ed, a_cs, a_cd, w_edij, w_cdij, w2e, b2e, attw, atb,
                                        w2c, b2c, wout, x_s, x_d, adj.view(torch.uint8), agg_h, agg_x)]
         err = lib.egnn_edge_dense_launch(*ptrs, b, ns, nd, h, hp, int(bool(use_tanh)),
-                                         float(coords_range), int(compute_dtype == torch.bfloat16),
-                                         stream)
+                                         float(coords_range), int(bf16), stream)
     if err != 0:
         raise RuntimeError(f"egnn_edge_dense kernel launch failed: "
                            f"{lib.egnn_edge_error_string(err).decode()} ({err})")
-    launches += 1
     return agg_h, agg_x

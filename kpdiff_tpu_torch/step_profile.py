@@ -7,8 +7,11 @@ unless --params names a keystr npz), encodes a synthetic batch of 128
 pockets per ligand bucket, and runs 10 strided sampling steps under
 torch.profiler. Prints, per bucket, the wall time per step, the device time
 per step summed over kernels, their ratio (the device's busy share) and the
-kernels that take the most device time; --out also writes the tables to
-a file.
+kernels that take the most device time. Then, for each shape of the edge
+kernel on that bucket's path (ll and kk), one launch of the kernel's
+profiling build (-DEGNN_EDGE_PHASE_CLOCKS) on the inputs the path gave it:
+the share of the warps' SM clocks spent in each in-kernel phase. --out also
+writes the tables to a file.
 """
 from __future__ import annotations
 
@@ -20,8 +23,10 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+import kpdiff_tpu_torch.models.egnn as egnn_mod
 from kpdiff_tpu_torch.config import PaddingConfig, load_config, model_from_config
 from kpdiff_tpu_torch.models.complex import synthetic_batch
+from kpdiff_tpu_torch.ops.cuda import egnn_edge
 from kpdiff_tpu_torch.utils.params_io import load_params, read_keystr_npz
 
 CONFIG = "configs/egnn_40kp.yml"
@@ -60,13 +65,35 @@ def main():
         enc, kk = model.encode(cpx)
         kk = model.compact_kk(enc, kk)
         gen = torch.Generator(device=dev).manual_seed(0)
-        model.sample(enc, kk, sample_steps=2, generator=gen)  # warm-up
+        captured = {}  # the edge kernel's inputs, first launch at each shape
+
+        def recording(*a, **kw):
+            key = ("kk" if a[0].shape[1] == pad.n_kp else "ll") + str(a[0].shape[1])
+            captured.setdefault(key, ([x.clone() if torch.is_tensor(x) else x for x in a], kw))
+            return real(*a, **kw)
+
+        real = egnn_mod.egnn_edge_dense
+        egnn_mod.egnn_edge_dense = recording
+        try:
+            model.sample(enc, kk, sample_steps=2, generator=gen)  # warm-up
+        finally:
+            egnn_mod.egnn_edge_dense = real
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model.sample(enc, kk, sample_steps=STEPS, generator=gen)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        chain = []  # (shape key, adj) of every edge-kernel launch in the profiled steps
+
+        def listing(*a, **kw):
+            chain.append((("kk" if a[0].shape[1] == pad.n_kp else "ll") + str(a[0].shape[1]), a[15]))
+            return real(*a, **kw)
+
+        egnn_mod.egnn_edge_dense = listing
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                model.sample(enc, kk, sample_steps=STEPS, generator=gen)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            egnn_mod.egnn_edge_dense = real
         # kernel rows only: an operator's row repeats the time of the kernels it launched
         events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
         device_s = sum(_device_us(e) for e in events) * 1e-6
@@ -78,6 +105,24 @@ def main():
             us = _device_us(e)
             lines.append(f"  {us / STEPS / 1e3:9.4f} ms/step {us * 1e-6 / device_s * 100:6.2f}%  "
                          f"{e.count // STEPS:5d}/step  {e.key[:90]}")
+        # the edge kernel launch by launch: profiled device time beside active pairs
+        kern = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                       and "egnn_edge_" in e.name), key=lambda e: e.time_range.start)
+        if len(kern) == len(chain):
+            for key in sorted({k for k, _ in chain}):
+                rows = [(_device_us(e), int(adj.sum())) for e, (k, adj) in zip(kern, chain) if k == key]
+                lines.append(f"  edge kernel {key}: {len(rows)} launches in {STEPS} steps, mean "
+                             f"{sum(r[0] for r in rows) / len(rows) / 1e3:.4f} ms/launch (profiled), mean "
+                             f"{sum(r[1] for r in rows) / len(rows):.0f} active pairs, first "
+                             f"{rows[0][0] / 1e3:.4f} ms at {rows[0][1]} pairs, last {rows[-1][0] / 1e3:.4f} ms "
+                             f"at {rows[-1][1]} pairs")
+        else:
+            lines.append(f"  edge kernel: {len(kern)} kernel events for {len(chain)} launches (not matched)")
+        for key, (a, kw) in sorted(captured.items()):
+            clocks = egnn_edge.phase_clocks(*a, **kw)
+            total = sum(clocks.values())
+            lines.append(f"  edge kernel phase clocks {key} ({int(a[15].sum())} active pairs): " + ", ".join(
+                f"{name} {v / total * 100:.1f}%" for name, v in clocks.items()) + f"; total {total} warp-clocks")
         print("\n".join(lines), flush=True)
         report.extend(lines)
     if args.out:

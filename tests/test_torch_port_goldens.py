@@ -53,7 +53,8 @@ def test_serving_api(tmp_path):
 
 
 GOLDENS = ["egnn_dynamics_mn0", "egnn_dynamics_mn1", "egnn_encoder", "refexec_chain_learned_egnn",
-           "refexec_chain_two_pockets_egnn"]
+           "refexec_chain_two_pockets_egnn", "refexec_chain_frames_egnn", "refexec_egnn_dynamics_mn0_executed",
+           "refexec_egnn_encoder_executed"]
 
 
 @pytest.mark.parametrize("name", GOLDENS)
@@ -93,6 +94,7 @@ def test_golden_case(name):
                            np.zeros((b, n_pad, 3), np.float32), np.zeros((b, n_pad, cfg.atom_nf), np.float32),
                            lig_mask, n_kp=meta["n_kp"], kp_feat_dim=meta["kp_feat_dim"])
         enc, kk = model.encode(cpx)
-        got = model.sample(enc, kk, noise={k: inputs[k] for k in ("init_x", "init_h", "steps_x", "steps_h")})
+        got = model.sample(enc, kk, return_every=meta.get("return_every", 0),
+                           noise={k: inputs[k] for k in ("init_x", "init_h", "steps_x", "steps_h")})
     for k, v in expected.items():
         assert_close(got[k], v, rtol=meta.get("rtol", 5e-4), atol=meta.get("atol", 1e-4), msg=f"{name}:{k}")
