@@ -18,28 +18,47 @@ Phases, each timed on its own line; any failure raises (non-zero exit):
      launch of a 10-step chain with injected noise; the chain's free-running
      distance to the plain chain is reported beside that of two plain chains
      whose initial noise differs by one ulp;
-  5. serving: KeypointSampler answers three requests.
+  5. serving: KeypointSampler answers three requests;
+  6. train: flagship training from the trained weights on molgen data (256
+     complexes, full padding): one batch of 4 through loss and backward on
+     the card and on the CPU, f32 (gated) and bf16 (loss gated, gradients
+     reported), TF32 off; 20 optimizer steps at batch 64 through the port's
+     trainer (the dense edges take the kernel's plain version under
+     autograd), with device and host ms/step and peak memory; the held-out
+     loss under no_grad through the kernel (12 launches per batch) against
+     the same pass through the plain version; a checkpoint, its npz export
+     and one sampling request served from it.
 Weights: the trained flagship, artifacts/egnn_40kp_trained_params.npz
 (--params names another keystr npz archive); the run fails without them.
-The last two lines are the kernel summary JSON and the device JSON.
+The last three lines are the kernel summary JSON, the card's name and power
+limit, and the device JSON.
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import json
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
 import torch
 
 import kpdiff_tpu_torch.models.egnn as egnn_mod
-from kpdiff_tpu_torch.config import PaddingConfig, load_config, model_from_config
+from kpdiff_tpu_torch.cli.export_params import export as export_params
+from kpdiff_tpu_torch.cli.train import evaluate, train_config_from
+from kpdiff_tpu_torch.config import PaddingConfig, load_config, model_from_config, resolve_feature_sizes
+from kpdiff_tpu_torch.data.dataset import PaddedLoader, resolve_lig_buckets
+from kpdiff_tpu_torch.data.molgen import molgen_splits_for_config
 from kpdiff_tpu_torch.models.complex import synthetic_batch, synthetic_complex_np
 from kpdiff_tpu_torch.ops.cuda import egnn_edge
 from kpdiff_tpu_torch.serve import KeypointSampler
+from kpdiff_tpu_torch.training import trainer
 from kpdiff_tpu_torch.utils.params_io import load_params, read_keystr_npz
 
 CONFIG = "configs/egnn_40kp.yml"
@@ -53,6 +72,11 @@ H100_BYTES = 3.35e12      # HBM3 bandwidth
 ELEMENTWISE_OPS = 16  # CUDA-core f32 ops per element, pair and chain: first-layer sum and
 #                      silu, lin2 bias and silu, the row product with attw or wout
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # relative max-abs error vs the plain version
+TRAIN_COMPLEXES = 256  # molgen training split: auto buckets [24, 32, 48], 3 full batches of 64 per epoch
+TRAIN_STEPS = 20
+TIMED_FROM = 5  # steps 5..19 enter the median ms/step
+GRAD_TOL_F32 = 1e-3  # card vs CPU: max abs error of each gradient leaf over that leaf's max abs value
+LOSS_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # card vs CPU and kernel vs plain, relative, per loss term
 
 
 def phase(name, t0):
@@ -164,6 +188,203 @@ def with_dtype(args, cd):
     return tuple(out)
 
 
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _loss_and_grads(model, batch, t_eps):
+    """Loss terms (floats) and {leaf: gradient on the CPU or None} of l2 + w_rec * rec_encoder."""
+    model.zero_grad(set_to_none=True)
+    losses = model.loss(batch, t_eps_override=t_eps)
+    (losses["l2"] + 0.1 * losses["rec_encoder"]).backward()
+    grads = {n: None if p.grad is None else p.grad.detach().float().cpu() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return {k: float(v) for k, v in losses.items()}, grads
+
+
+def card_vs_cpu(cfg, flat, batch, t_eps, dev, dtype_name):
+    """One loss and backward on the card and on the CPU, same weights, batch
+    and (t, eps). Returns the worst relative loss-term error and per-leaf
+    gradient errors (max abs error over the leaf's max abs value)."""
+    cfg = copy.deepcopy(cfg)
+    cfg["dynamics"]["compute_dtype"] = cfg["rec_encoder"]["compute_dtype"] = dtype_name
+    out = []
+    for device in (dev, torch.device("cpu")):
+        model = model_from_config(cfg, device=device)
+        load_params(model, flat)
+        out.append(_loss_and_grads(model, batch.to(device), t_eps))
+        del model
+    (l_card, g_card), (l_cpu, g_cpu) = out
+    loss_err = {k: _rel(l_card[k], l_cpu[k]) for k in l_cpu}
+    leaf_err, worst_abs, scale_all = {}, 0.0, 0.0
+    for name, g in g_cpu.items():
+        if (g is None) != (g_card[name] is None):
+            raise RuntimeError(f"{dtype_name}: gradient of {name} is None on one side only")
+        if g is None:
+            continue
+        err = float((g_card[name] - g).abs().max())
+        scale = float(g.abs().max())
+        leaf_err[name] = err / max(scale, 1e-30)
+        worst_abs, scale_all = max(worst_abs, err), max(scale_all, scale)
+    return loss_err, leaf_err, worst_abs / max(scale_all, 1e-30), l_card
+
+
+def train_phase(params_path, seed, dev):
+    """Phase 6; returns the phase's record and the kernel launches on its paths."""
+    cfg = load_config(CONFIG)
+    cfg["training"]["sample_interval"] = 0
+    pad = PaddingConfig.from_config(cfg)
+    n_rec_feat = resolve_feature_sizes(cfg)[0]
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise RuntimeError("TF32 is on: the f32 card-vs-CPU gate needs full f32 products")
+
+    t1 = time.perf_counter()
+    train_ds, test_ds = molgen_splits_for_config(cfg, pad, n_rec_feat, TRAIN_COMPLEXES, seed)
+    buckets = resolve_lig_buckets(cfg, train_ds, pad.n_lig)
+    data_s = time.perf_counter() - t1
+    sizes = np.diff(train_ds.lig_segments)
+    per_bucket = {b: int(((sizes <= b) & (sizes > lo)).sum()) for lo, b in zip([0] + buckets[:-1], buckets)}
+    print(f"train data: molgen {len(train_ds)} train / {len(test_ds)} test complexes in {data_s:.3f} s; "
+          f"buckets {buckets} with {per_bucket} training complexes", flush=True)
+    flat = read_keystr_npz(params_path)
+    tcfg = train_config_from(cfg)
+    batch_size = tcfg.batch_size
+    iters_per_epoch = max(len(train_ds) // batch_size, 1)
+
+    def loader(ds, s, drop_last=True, bs=batch_size):
+        return PaddedLoader(ds, pad, bs, pad.n_kp, 128, seed=s, drop_last=drop_last, lig_buckets=buckets)
+
+    # ---- card against CPU, one batch of 4 with a fixed (t, eps)
+    small = next(loader(train_ds, seed, bs=4).epoch())
+    rng = np.random.default_rng(seed + 3)
+    b, n, f = small.lig_h.shape
+    t_eps = (rng.integers(0, cfg["diffusion"]["n_timesteps"], b), rng.normal(size=(b, n, 3)).astype(np.float32),
+             rng.normal(size=(b, n, f)).astype(np.float32))
+    compare = {}
+    for dtype_name, cd in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        loss_err, leaf_err, grad_rel_all, losses = card_vs_cpu(cfg, flat, small, t_eps, dev, dtype_name)
+        worst_leaf = max(leaf_err, key=leaf_err.get)
+        compare[dtype_name] = dict(loss_rel_err=loss_err, grad_leaf_rel_err_max=leaf_err[worst_leaf],
+                                   grad_leaf_worst=worst_leaf, grad_rel_err_all_leaves=grad_rel_all,
+                                   grad_leaves=len(leaf_err), losses_card=losses)
+        print(f"train card vs CPU {dtype_name} (batch 4, bucket {n}): loss rel err "
+              + ", ".join(f"{k} {v:.3e}" for k, v in sorted(loss_err.items()))
+              + f" (gate {LOSS_TOL[cd]:.0e}); gradients over {len(leaf_err)} leaves: worst leaf {worst_leaf} "
+              f"{leaf_err[worst_leaf]:.3e} of its max abs"
+              + (f" (gate {GRAD_TOL_F32:.0e})" if cd == torch.float32 else " (reported)")
+              + f", all leaves {grad_rel_all:.3e} of the largest", flush=True)
+        if max(loss_err.values()) > LOSS_TOL[cd]:
+            raise RuntimeError(f"card vs CPU {dtype_name}: loss terms differ {loss_err}")
+        if cd == torch.float32 and leaf_err[worst_leaf] > GRAD_TOL_F32:
+            bad = {k: v for k, v in leaf_err.items() if v > GRAD_TOL_F32}
+            raise RuntimeError(f"card vs CPU f32: gradient leaves beyond {GRAD_TOL_F32}: {bad}")
+
+    # ---- 20 optimizer steps at batch 64 from the trained weights
+    model = model_from_config(cfg, device=dev, seed=seed)
+    load_params(model, flat)
+    train_loader = loader(train_ds, seed)
+    batches = []
+    while len(batches) < TRAIN_STEPS:
+        batches.extend(train_loader.epoch())
+    batches = batches[:TRAIN_STEPS]
+    state = trainer.init_train_state(model, tcfg)
+    step_fn = trainer.make_train_step(tcfg, iters_per_epoch)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    egnn_edge.launches = 0
+    rows, dev_ms, host_ms = [], [], []
+    moved_after = None
+    for i, batch in enumerate(batches):
+        batch = batch.to(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        start.record()
+        m = step_fn(state, batch, generator=gen)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - h0) * 1e3)
+        dev_ms.append(start.elapsed_time(end))
+        rows.append(dict(step=i, bucket=int(batch.lig_x.shape[1]), **m))
+        if moved_after is None and any(not torch.equal(p0[k], v) for k, v in model.named_parameters()):
+            moved_after = i
+    train_launches = egnn_edge.launches
+    peak = torch.cuda.max_memory_allocated()
+    for r in rows:
+        if not all(np.isfinite(r[k]) for k in ("l2", "pos", "feat", "rec_encoder", "total")):
+            raise RuntimeError(f"train step {r['step']}: non-finite loss {r}")
+        if r["skipped_nonfinite"] != 0.0:
+            raise RuntimeError(f"train step {r['step']} skipped a non-finite update")
+    if rows[0]["lr"] != 0.0 or moved_after != 1:
+        raise RuntimeError(f"warm-up: lr {rows[0]['lr']} at step 0; parameters first moved after step {moved_after}")
+    if train_launches != 0:
+        raise RuntimeError(f"training launched the forward-only kernel {train_launches} times")
+    med_dev = statistics.median(dev_ms[TIMED_FROM:])
+    med_host = statistics.median(host_ms[TIMED_FROM:])
+    by_bucket = {bk: statistics.median([d for d, r in zip(dev_ms[TIMED_FROM:], rows[TIMED_FROM:]) if r["bucket"] == bk])
+                 for bk in sorted({r["bucket"] for r in rows[TIMED_FROM:]})}
+    print(f"train {TRAIN_STEPS} steps at batch {batch_size}: median {med_dev:.3f} ms/step on CUDA events, "
+          f"{med_host:.3f} ms/step on the host clock (steps {TIMED_FROM}-{TRAIN_STEPS - 1}); by bucket "
+          + ", ".join(f"{k}: {v:.3f} ms" for k, v in by_bucket.items())
+          + f"; first step {dev_ms[0]:.3f} ms; peak memory {peak / 2**30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated); kernel launches in training {train_launches}", flush=True)
+    print("train trajectory (step bucket lr l2 rec_encoder): " + "; ".join(
+        f"{r['step']} {r['bucket']} {r['lr']:.2e} {r['l2']:.4f} {r['rec_encoder']:.3f}" for r in rows), flush=True)
+
+    # ---- held-out loss under no_grad: kernel, then the plain version on the same batches and draws
+    eval_batches = list(loader(test_ds, seed + 7, drop_last=False).epoch())
+    fixed = types.SimpleNamespace(epoch=lambda: iter(eval_batches))
+    real = egnn_mod.egnn_edge_dense
+    egnn_edge.launches = 0
+    ev_kernel = evaluate(model, fixed, dev, torch.Generator(device=dev).manual_seed(seed + 9))
+    torch.cuda.synchronize()
+    eval_launches = egnn_edge.launches
+    egnn_mod.egnn_edge_dense = egnn_edge.egnn_edge_dense_plain
+    try:
+        ev_plain = evaluate(model, fixed, dev, torch.Generator(device=dev).manual_seed(seed + 9))
+    finally:
+        egnn_mod.egnn_edge_dense = real
+    n_layers = cfg["dynamics"]["n_layers"]
+    want = 2 * n_layers * len(eval_batches)
+    eval_err = {k: _rel(ev_kernel[k], ev_plain[k]) for k in ev_plain}
+    print(f"train eval: {len(eval_batches)} held-out batches (buckets "
+          f"{[int(b_.lig_x.shape[1]) for b_ in eval_batches]}), {eval_launches} kernel launches "
+          f"({2 * n_layers} per batch); kernel vs plain loss rel err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in sorted(eval_err.items())) + f" (gate {LOSS_TOL[torch.bfloat16]:.0e}); "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(ev_kernel.items())), flush=True)
+    if eval_launches != want:
+        raise RuntimeError(f"held-out loss: {eval_launches} kernel launches, expected {want}")
+    if max(eval_err.values()) > LOSS_TOL[torch.bfloat16] or not all(np.isfinite(v) for v in ev_kernel.values()):
+        raise RuntimeError(f"held-out loss, kernel vs plain: {eval_err}")
+
+    # ---- checkpoint, npz export, one request served from it
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = trainer.save_checkpoint(Path(tmp) / "checkpoints", state)
+        npz = Path(tmp) / "params.npz"
+        export_params(tmp, npz)
+        del model, state
+        sampler = KeypointSampler.from_params(CONFIG, npz, batch_size=64, device="cuda", seed=seed,
+                                              sample_steps=STEPS)
+        pocket = synthetic_complex_np(np.random.default_rng(seed + 4), 260, 20, 260, 20, 10, 10)
+        egnn_edge.launches = 0
+        mols = sampler.sample_for_arrays(pocket["rec_x"], pocket["rec_h"], pocket["rec_res_idx"],
+                                         init_com=pocket["lig_x"].mean(0), n_mols=8, ligand_size=20)
+        torch.cuda.synchronize()
+        serve_launches = egnn_edge.launches
+    if len(mols) != 8 or not all(np.isfinite(c).all() and c.shape == (20, 3) for c, _ in mols) or serve_launches <= 0:
+        raise RuntimeError(f"serving from the exported npz: {len(mols)} molecules, {serve_launches} kernel launches")
+    print(f"train export: checkpoint {ckpt.name}, npz served 8 molecules of 20 atoms with {serve_launches} "
+          f"kernel launches", flush=True)
+    record = dict(data_s=data_s, buckets=buckets, train_complexes_per_bucket=per_bucket, card_vs_cpu=compare,
+                  steps=rows, step_ms_device=dev_ms, step_ms_host=host_ms, median_ms_device=med_dev,
+                  median_ms_host=med_host, median_ms_device_by_bucket=by_bucket, peak_memory_bytes=peak,
+                  eval_kernel=ev_kernel, eval_plain=ev_plain, eval_rel_err=eval_err, eval_batches=len(eval_batches),
+                  eval_launches=eval_launches, serve_launches=serve_launches)
+    return record, dict(train_steps=train_launches, train_eval=eval_launches, train_serve=serve_launches)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--params", default=PARAMS, help=f"keystr npz of trained weights (default: {PARAMS})")
@@ -241,8 +462,9 @@ def main():
             cpx = synthetic_batch(0, batch=BATCH, n_rec_pad=pad.n_rec, n_lig_pad=n_lig, n_rec_feat=10,
                                   n_lig_feat=10, n_kp=pad.n_kp, kp_feat_dim=model.cfg.rec_nf, n_ip_pad=pad.n_ip,
                                   min_rec=260, min_lig=min(18, n_lig - 2), device=dev)
-            enc, kk = model.encode(cpx)
-            kk = model.compact_kk(enc, kk)
+            with torch.no_grad():
+                enc, kk = model.encode(cpx)
+                kk = model.compact_kk(enc, kk)
             layout = f"nbr_cap{int(kk[0].shape[-1])}" if isinstance(kk, tuple) else "dense"
             encoded[n_lig] = (enc, kk)
             gen = torch.Generator(device=dev).manual_seed(args.seed + n_lig)
@@ -341,7 +563,13 @@ def main():
             raise RuntimeError(f"serving request ({n_rec} pocket atoms, {n_mols} mols) returned bad molecules")
         serve_rows.append(dict(pocket_atoms=n_rec, n_mols=n_mols, ligand_size=size, latency_s=dt))
         print(f"serve request: pocket {n_rec} atoms, {n_mols} mols of {size} atoms: {dt:.3f} s", flush=True)
+    del sampler
     phase("serve", t0)
+
+    # ---- 6. train: flagship training steps, held-out loss, export -> serve
+    t0 = time.perf_counter()
+    train_record, train_paths = train_phase(args.params, args.seed, dev)
+    phase("train", t0)
 
     total = time.perf_counter() - t_all
     print(f"total wall: {total:.3f} s", flush=True)
@@ -352,12 +580,13 @@ def main():
         "shape": head["shape"], "max_abs_err": head["max_abs_err"], "max_rel_err_bf16": head["max_rel_err"],
         "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+        "launches_by_path": dict(sample=main_launches, **train_paths),
         "shapes": list(main_rows.values()) + shape_rows,
     }]}
     record = dict(card=card, device=torch.cuda.get_device_name(0), weights=weights, slice=slice_rows,
                   mixture_s_per_ligand=mixture, chain_step_max_rel_err=chain_step_err,
                   chain_free_max_rel_diff=chain_free, chain_one_ulp_max_rel_diff=chain_ulp, serve=serve_rows,
-                  total_wall_s=total, **kernels)
+                  train=train_record, total_wall_s=total, **kernels)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1))

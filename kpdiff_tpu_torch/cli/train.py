@@ -1,0 +1,302 @@
+"""Training CLI of the port (kpdiff_tpu/cli/train.py).
+
+    python -m kpdiff_tpu_torch.cli.train --config configs/egnn_40kp.yml \
+        --synthetic_mol 256 --set training.sample_interval=0
+    python -m kpdiff_tpu_torch.cli.train --resume runs/<run_dir>
+
+Trains on one CUDA card by default and raises without one (`--device cpu`
+runs the plain PyTorch path on the CPU). A run directory holds config.yml,
+train_metrics.pkl, test_metrics.pkl and checkpoints/step_N.pt (parameters,
+optimizer state and step); `cli/export_params.py` turns a checkpoint into
+the keystr npz that both packages load. Metrics go to the pickle logs and
+stdout only. Not ported yet: data-parallel and keypoint-sharded training
+(`--n_devices`, `--mp_devices` other than 1) and the in-training molecule
+analyzer (`training.sample_interval` > 0); both raise NotImplementedError.
+"""
+from __future__ import annotations
+
+import argparse
+import ast
+import time
+import uuid
+from pathlib import Path
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--config", type=str, default=None)
+    p.add_argument("--resume", type=str, default=None, help="run dir to resume from")
+    p.add_argument("--synthetic", type=int, default=0, help="train on N synthetic complexes")
+    p.add_argument("--synthetic_mol", type=int, default=0,
+                   help="train on N molecule-like synthetic complexes (data/molgen.py)")
+    p.add_argument("--epochs", type=float, default=None)
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--learning_rate", type=float, default=None)
+    p.add_argument("--dataset_size", type=int, default=None)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--device", type=str, default="cuda", help="cuda (default; raises without CUDA) or cpu")
+    p.add_argument("--n_devices", type=int, default=1, help="only 1 is ported")
+    p.add_argument("--mp_devices", type=int, default=1, help="only 1 is ported")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of steps 10-15 to this dir")
+    p.add_argument("--set", action="append", default=[], metavar="SECTION.KEY=VALUE",
+                   help="override any nested config key, e.g. --set dynamics.n_layers=4")
+    return p.parse_args(argv)
+
+
+def apply_overrides(config, overrides):
+    for ov in overrides:
+        path, _, raw = ov.partition("=")
+        keys = path.strip().split(".")
+        node = config
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        try:
+            value = ast.literal_eval(raw)
+        except (ValueError, SyntaxError):
+            value = raw
+        node[keys[-1]] = value
+    return config
+
+
+def _check_ported(args, config):
+    if args.n_devices != 1 or args.mp_devices != 1:
+        raise NotImplementedError(
+            f"--n_devices {args.n_devices} --mp_devices {args.mp_devices}: multi-device training "
+            "(data parallel, keypoint sharding) is not ported yet; pass 1")
+    if config.get("training", {}).get("sample_interval", 0):
+        raise NotImplementedError(
+            "training.sample_interval > 0 samples molecules through the analyzer "
+            "(kpdiff_tpu/analysis/analyzer.py), which is not ported yet; pass "
+            "--set training.sample_interval=0")
+
+
+def main(argv=None):
+    args = parse_args(argv)
+
+    import torch
+
+    from kpdiff_tpu_torch.config import (PaddingConfig, dump_yaml, load_config, model_from_config,
+                                         resolve_feature_sizes)
+    from kpdiff_tpu_torch.data.dataset import ComplexDataset, PaddedLoader, resolve_lig_buckets, synthetic_dataset
+    from kpdiff_tpu_torch.data.prefetch import prefetch
+    from kpdiff_tpu_torch.device import resolve_device
+    from kpdiff_tpu_torch.training.scheduler import is_restart_boundary
+    from kpdiff_tpu_torch.training.trainer import (MetricsLog, checkpoint_steps, init_train_state, load_checkpoint,
+                                                   make_train_step, save_checkpoint)
+
+    dev = resolve_device(args.device)
+    if args.resume:
+        run_dir = Path(args.resume)
+        config = apply_overrides(load_config(run_dir / "config.yml"), args.set)
+        _check_ported(args, config)
+    else:
+        config = apply_overrides(load_config(args.config), args.set)
+        _check_ported(args, config)
+        name = config.get("experiment", {}).get("name", "run")
+        results_dir = Path(config.get("experiment", {}).get("results_dir", "runs/"))
+        run_dir = results_dir / f"{name}_{time.strftime('%Y%m%d_%H%M%S')}_{uuid.uuid4().hex[:4]}"
+        run_dir.mkdir(parents=True, exist_ok=True)
+
+    tr = config.setdefault("training", {})
+    if args.epochs is not None:
+        tr["epochs"] = args.epochs
+    if args.batch_size is not None:
+        tr["batch_size"] = args.batch_size
+    if args.learning_rate is not None:
+        tr["learning_rate"] = args.learning_rate
+    if args.dataset_size is not None:
+        config.setdefault("dataset", {})["dataset_size"] = args.dataset_size
+    if not args.resume:
+        (run_dir / "config.yml").write_text(dump_yaml(config))
+
+    model = model_from_config(config, device=dev, seed=args.seed)
+    pad = PaddingConfig.from_config(config)
+    n_rec_feat, _, _ = resolve_feature_sizes(config)
+
+    # ---- dataset
+    ds_cfg = config["dataset"]
+    if args.synthetic_mol:
+        from kpdiff_tpu_torch.data.molgen import molgen_splits_for_config
+
+        train_ds, test_ds = molgen_splits_for_config(config, pad, n_rec_feat, args.synthetic_mol, args.seed)
+    elif args.synthetic:
+        rec_range = (min(24, pad.n_rec // 2), pad.n_rec)
+        lig_range = (min(8, max(pad.n_lig // 2, 2)), pad.n_lig)
+        kw = dict(n_rec_feat=n_rec_feat, n_lig_feat=len(ds_cfg["lig_elements"]), rec_range=rec_range,
+                  lig_range=lig_range)
+        train_ds = synthetic_dataset(args.synthetic, seed=args.seed, **kw)
+        test_ds = synthetic_dataset(max(args.synthetic // 4, 4), seed=args.seed + 1, **kw)
+    else:
+        loc = Path(ds_cfg["location"])
+        train_ds = ComplexDataset.from_pickle(loc / "train.pkl")
+        test_ds = ComplexDataset.from_pickle(loc / "val.pkl")
+
+    lig_buckets = resolve_lig_buckets(config, train_ds, pad.n_lig)
+    batch_size = tr.get("batch_size", 32)
+
+    def loader(ds, seed, drop_last=True):
+        return PaddedLoader(ds, pad, batch_size=batch_size, n_kp=pad.n_kp, kp_feat_dim=model.cfg.rec_nf,
+                            max_fake_atom_frac=ds_cfg.get("max_fake_atom_frac", 0.0), seed=seed,
+                            drop_last=drop_last, lig_buckets=lig_buckets)
+
+    train_loader = loader(train_ds, args.seed)
+    test_loader = loader(test_ds, args.seed + 7, drop_last=False)
+    iters_per_epoch = max(len(train_ds) // batch_size, 1)
+
+    tcfg = train_config_from(config)
+    state = init_train_state(model, tcfg)
+    if args.resume:
+        load_checkpoint(run_dir / "checkpoints", state)
+        print(f"resumed from step {state.step}", flush=True)
+    step_fn = make_train_step(tcfg, iters_per_epoch)
+    generator = torch.Generator(device=dev).manual_seed(args.seed + 1)
+
+    train_log = MetricsLog(run_dir / "train_metrics.pkl")
+    test_log = MetricsLog(run_dir / "test_metrics.pkl")
+    ckpt_dir = run_dir / "checkpoints"
+    if ((config.get("wandb") or {}).get("init_kwargs") or {}).get("mode", "disabled") != "disabled":
+        print("wandb is not used by the port; metrics go to the pickle logs only", flush=True)
+
+    test_interval = tr.get("test_interval", 1)
+    save_interval = tr.get("save_interval", 1)
+    metrics_interval = tr.get("train_metrics_interval", 0.1)
+    last_test_marker = last_save_marker = last_metrics_marker = 0.0
+    prev_epoch = 0.0
+    nonfinite_streak = 0
+    dropped_warned = False
+    profiler = None
+
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"run dir: {run_dir}; params: {n_params:,}; device: {dev}; iters/epoch: {iters_per_epoch}", flush=True)
+
+    epochs = tr.get("epochs", 3)
+    t0 = time.time()
+    done = False
+    while not done:
+        for batch in prefetch(train_loader.epoch(), depth=2):
+            epoch_exact = state.step / iters_per_epoch
+            if epoch_exact >= epochs:
+                done = True
+                break
+            if args.profile_dir and state.step == 10:
+                profiler = _start_profiler(dev)
+            if profiler is not None and state.step == 15:
+                profiler.stop()
+                Path(args.profile_dir).mkdir(parents=True, exist_ok=True)
+                profiler.export_chrome_trace(str(Path(args.profile_dir) / "trace.json"))
+                profiler = None
+                print(f"profiler trace written to {args.profile_dir}", flush=True)
+
+            metrics = step_fn(state, batch.to(dev, non_blocking=True), generator=generator)
+
+            # a skipped non-finite step is logged; a streak of them halts the
+            # run without saving, to resume from the newest good checkpoint
+            if metrics["skipped_nonfinite"] > 0:
+                nonfinite_streak += 1
+                print(f"  WARNING: non-finite loss/grad at step {state.step}; "
+                      f"update skipped (streak {nonfinite_streak})", flush=True)
+            else:
+                nonfinite_streak = 0
+            if nonfinite_streak >= 10:
+                steps = checkpoint_steps(ckpt_dir) if ckpt_dir.exists() else []
+                last_good = f"step_{steps[-1]}.pt" if steps else "none"
+                raise RuntimeError(f"10 consecutive non-finite losses ending at step {state.step}; "
+                                   f"state NOT saved; resume from {ckpt_dir}/{last_good}")
+
+            if epoch_exact - last_metrics_marker >= metrics_interval:
+                last_metrics_marker = epoch_exact
+                row = dict(metrics, epoch=epoch_exact)
+                train_log.append(**row)
+                print(f"epoch {epoch_exact:7.2f} step {state.step:6d} l2 {row['l2']:.4f} pos {row['pos']:.4f} "
+                      f"feat {row['feat']:.4f} rec {row['rec_encoder']:.4f} lr {row['lr']:.2e} "
+                      f"({time.time() - t0:.0f}s)", flush=True)
+
+            if epoch_exact - last_test_marker >= test_interval:
+                last_test_marker = epoch_exact
+                test_row = evaluate(model, test_loader, dev, generator, test_epochs=tr.get("test_epochs", 1))
+                test_row["epoch"] = epoch_exact
+                test_log.append(**test_row)
+                print(f"  test: {test_row}", flush=True)
+
+            if epoch_exact - last_save_marker >= save_interval:
+                last_save_marker = epoch_exact
+                save_checkpoint(ckpt_dir, state)
+            if is_restart_boundary(tcfg.scheduler, prev_epoch, epoch_exact):
+                save_checkpoint(ckpt_dir, state)
+            prev_epoch = epoch_exact
+
+        # complexes beyond the padding capacity are data loss: say so
+        if train_loader.n_dropped and not dropped_warned:
+            dropped_warned = True
+            print(f"  WARNING: {train_loader.n_dropped}/{len(train_ds)} training complexes exceed padding "
+                  f"capacity (n_lig={pad.n_lig}, n_rec={pad.n_rec}, n_ip={pad.n_ip}) and were dropped", flush=True)
+    if profiler is not None:
+        profiler.stop()
+
+    final_epoch = state.step / iters_per_epoch
+    test_row = evaluate(model, test_loader, dev, generator, test_epochs=tr.get("test_epochs", 1))
+    test_row["epoch"] = final_epoch
+    test_log.append(**test_row)
+    print(f"  final test: {test_row}", flush=True)
+    path = save_checkpoint(ckpt_dir, state)
+    print(f"done at step {state.step}; final checkpoint saved to {path}", flush=True)
+    return run_dir, state
+
+
+def train_config_from(config):
+    """TrainConfig from a config's training section (the JAX CLI's defaults)."""
+    from kpdiff_tpu_torch.training.scheduler import SchedulerConfig
+    from kpdiff_tpu_torch.training.trainer import TrainConfig
+
+    tr = config.get("training", {})
+    sched = tr.get("scheduler", {})
+    return TrainConfig(
+        learning_rate=tr.get("learning_rate", 1e-4),
+        weight_decay=tr.get("weight_decay", 1e-12),
+        clip_grad=tr.get("clip_grad", True),
+        clip_value=tr.get("clip_value", 1.5),
+        batch_size=tr.get("batch_size", 32),
+        epochs=tr.get("epochs", 3),
+        rec_encoder_loss_weight=tr.get("rec_encoder_loss_weight", 0.1),
+        rl_hinge_loss_weight=tr.get("rl_hinge_loss_weight", 0.0),
+        grad_accum=int(tr.get("grad_accum", 1) or 1),
+        scheduler=SchedulerConfig(
+            base_lr=tr.get("learning_rate", 1e-4),
+            warmup_length=sched.get("warmup_length", 0),
+            restart_interval=sched.get("restart_interval", 0),
+            restart_type=sched.get("restart_type", "cosine"),
+            rec_enc_loss_weight=tr.get("rec_encoder_loss_weight", 0.1),
+            rec_enc_weight_decay_midpoint=sched.get("rec_enc_weight_decay_midpoint", 0),
+            rec_enc_weight_decay_scale=sched.get("rec_enc_weight_decay_scale", 1),
+        ),
+    )
+
+
+def _start_profiler(dev):
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def evaluate(model, test_loader, device, generator=None, test_epochs=1):
+    """Held-out loss over `test_epochs` passes of the test split, under
+    no_grad: the dense edges go through the CUDA kernel on a card."""
+    import torch
+
+    sums, n = {}, 0
+    with torch.no_grad():
+        for _ in range(max(int(test_epochs), 1)):
+            for batch in test_loader.epoch():
+                losses = model.loss(batch.to(device), generator=generator)
+                for key, v in losses.items():
+                    sums[key] = sums.get(key, 0.0) + float(v)
+                n += 1
+    return {f"test_{k}": v / max(n, 1) for k, v in sums.items()}
+
+
+if __name__ == "__main__":
+    main()

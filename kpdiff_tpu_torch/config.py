@@ -6,6 +6,8 @@ for the YAML subset that `configs/*.yml` use, so it needs no PyYAML: nested
 block maps, block and flow sequences, flow maps, plain and quoted scalars,
 and comments. Scalars resolve as PyYAML's safe loader resolves them (YAML
 1.1 rules: `1.0e-5` is a float, `1e-5` without a dot stays a string).
+`dump_yaml` writes a config back in that subset (the train CLI's
+config.yml), so that this reader and PyYAML both read it back equal.
 """
 from __future__ import annotations
 
@@ -194,6 +196,83 @@ def parse_yaml(text: str) -> Any:
     if pos != len(lines):
         raise ValueError(f"unparsed YAML from line {lines[pos][1]!r}")
     return out
+
+
+_PLAIN = re.compile(r"^[A-Za-z_/][A-Za-z0-9_./-]*$")
+
+
+def _dump_scalar(v: Any) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if v != v:
+            return ".nan"
+        if v in (float("inf"), float("-inf")):
+            return ".inf" if v > 0 else "-.inf"
+        r = repr(v)
+        mant, _, exp = r.partition("e")
+        if "." not in mant:
+            mant += ".0"
+        if exp and exp[0] not in "+-":
+            exp = "+" + exp
+        return mant + ("e" + exp if exp else "")
+    if isinstance(v, str):
+        if "\n" in v or "\r" in v:
+            raise ValueError(f"multi-line string {v!r} is outside the YAML subset")
+        if _PLAIN.match(v) and _scalar(v) == v:
+            return v
+        return "'" + v.replace("'", "''") + "'"
+    raise TypeError(f"cannot write {type(v).__name__} {v!r} as YAML")
+
+
+def _inline(v: Any) -> bool:
+    """Whether `v` fits on its key's or its dash's line: a scalar, an empty
+    container or a list of scalars (written as a flow sequence)."""
+    if isinstance(v, dict):
+        return not v
+    if isinstance(v, (list, tuple)):
+        return not any(isinstance(x, (dict, list, tuple)) for x in v)
+    return True
+
+
+def _dump_inline(v: Any) -> str:
+    if isinstance(v, dict):
+        return "{}"
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_dump_scalar(x) for x in v) + "]"
+    return _dump_scalar(v)
+
+
+def _dump_lines(obj: Any, indent: int) -> List[str]:
+    """Block lines of a non-inline dict or list."""
+    pad = " " * indent
+    out = []
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            if _inline(v):
+                out.append(f"{pad}{_dump_scalar(k)}: {_dump_inline(v)}")
+            else:
+                out.append(f"{pad}{_dump_scalar(k)}:")
+                out.extend(_dump_lines(v, indent + 2))
+        return out
+    for x in obj:
+        if _inline(x):
+            out.append(f"{pad}- {_dump_inline(x)}")
+        else:
+            out.append(pad + "-")
+            out.extend(_dump_lines(x, indent + 2))
+    return out
+
+
+def dump_yaml(obj: Any) -> str:
+    """`obj` (dicts, lists and scalars) as YAML in the subset `parse_yaml` reads."""
+    if _inline(obj):
+        return _dump_inline(obj) + "\n"
+    return "\n".join(_dump_lines(obj, 0)) + "\n"
 
 
 def load_config(path: str | Path) -> Dict[str, Any]:

@@ -40,6 +40,11 @@ class PaddedComplex:
     def replace(self, **changes) -> "PaddedComplex":
         return dataclasses.replace(self, **changes)
 
+    def to(self, device, non_blocking: bool = False) -> "PaddedComplex":
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device, non_blocking=non_blocking)
+            for f in dataclasses.fields(self) if getattr(self, f.name) is not None})
+
 
 def make_complex(rec_x, rec_h, rec_mask, lig_x, lig_h, lig_mask, n_kp: int, kp_feat_dim: int,
                  rec_res_idx=None, ip_x=None, ip_mask=None, device="cpu") -> PaddedComplex:

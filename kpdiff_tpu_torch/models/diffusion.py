@@ -1,22 +1,32 @@
-"""KeypointDiffusion sampling (kpdiff_tpu/models/diffusion.py:166-262, :424-621).
+"""KeypointDiffusion: training loss and sampling (kpdiff_tpu/models/diffusion.py).
 
 The reverse-diffusion chain is a Python loop over the timestep grid (the
-JAX package's lax.scan); encode, the kk edge structure, compact_kk and the
-p(z_s | z_t) update follow the JAX package step for step. Sampling sends
-every dense edge type through the CUDA edge kernel, as the JAX package's
-sampler does with `dynamics.use_pallas_sampling`. The training loss is not
-ported yet.
+JAX package's lax.scan); encode, the kk edge structure, compact_kk, the
+training loss (noise l2, the receptor encoder's OT loss and the optional
+receptor-ligand hinge) and the p(z_s | z_t) update follow the JAX package
+step for step.
+
+`encode` is differentiable, so that the loss trains the encoder. Which
+path the dense edges take follows from autograd: while it records (the
+training loss), `EGNNEdgeDense` runs the kernel's plain version on its
+parameters, as the JAX package trains through XLA; under `torch.no_grad()`
+(sampling, serving, the held-out loss) every dense edge type goes through
+the CUDA edge kernel, as the JAX package's sampler does with
+`dynamics.use_pallas_sampling`. Callers that sample run encode, compact_kk
+and sample under `torch.no_grad()`.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from kpdiff_tpu_torch.losses.hinge import masked_hinge_loss
+from kpdiff_tpu_torch.losses.ot import ot_loss
 from kpdiff_tpu_torch.models.complex import PaddedComplex
 from kpdiff_tpu_torch.models.dynamics_egnn import EGNNDynamics
 from kpdiff_tpu_torch.models.nn import compute_dtype
@@ -61,6 +71,7 @@ def dynamics_from_config(cfg: DiffusionConfig, gen: torch.Generator) -> EGNNDyna
         ll_k=dyn.get("ll_k", 0), kl_k=dyn.get("kl_k", 0),
         ll_cutoff=cfg.graph_cutoffs.get("ll", 9.0),
         compute_dtype=dyn.get("compute_dtype", "float32"), z_semantics=dyn.get("z_semantics", "intent"),
+        remat=dyn.get("remat", False),
     )
 
 
@@ -86,12 +97,15 @@ class KeypointDiffusion(nn.Module):
         self.dynamics = dynamics_from_config(cfg, gen)
         self.cd = compute_dtype(cfg.dynamics.get("compute_dtype", "float32"))
         self._precast = None
+        self.rec_loss_kwargs = dict(cfg.rec_encoder_loss)
+        self.rec_loss_type = self.rec_loss_kwargs.get("loss_type", "none")
+        self.rec_loss_use_ip = self.rec_loss_kwargs.get("use_interface_points", False)
 
     # ---------------------------------------------------------------- encode
 
-    @torch.no_grad()
     def encode(self, cpx: PaddedComplex):
-        """Encoder pass -> (complex with kp_* filled, kk edge structure)."""
+        """Encoder pass -> (complex with kp_* filled, kk edge structure).
+        Differentiable; sampling callers run it under torch.no_grad()."""
         cpx = self.encoder(cpx)
         return cpx, self._kk_edges(cpx)
 
@@ -118,6 +132,99 @@ class KeypointDiffusion(nn.Module):
             return kk
         return radius_neighbor_list(cpx.kp_x, cpx.kp_mask, cpx.kp_x, cpx.kp_mask,
                                     self.cfg.graph_cutoffs["kk"], cap, exclude_self=True)
+
+    # ------------------------------------------------------------------ loss
+
+    def loss(self, cpx: PaddedComplex,
+             t_eps_override: Optional[Tuple[Any, Any, Any]] = None,
+             generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """Training losses (kpdiff_tpu/models/diffusion.py:281-399): l2, pos,
+        feat, rec_encoder and, with rl_dist_threshold > 0, rl_hinge.
+
+        `t_eps_override` = (t_int (B,), eps_x (B,N,3), eps_h (B,N,F)) replaces
+        the draws of the timestep and the noise (the seam the tests use);
+        otherwise they come from `generator` (a torch.Generator on the
+        complex's device)."""
+        cfg = self.cfg
+        b = cpx.batch_size
+        dev = cpx.device
+        f32 = torch.float32
+
+        cpx = cpx.replace(lig_h=cpx.lig_h / cfg.lig_feat_norm_constant)
+        cpx, kk = self.encode(cpx)
+        losses: Dict[str, torch.Tensor] = {"rec_encoder": self._rec_encoder_loss(cpx)}
+
+        lm = cpx.lig_mask[..., None].to(cpx.lig_x.dtype)
+        km = cpx.kp_mask[..., None].to(cpx.kp_x.dtype)
+        init_kp_com = masked_com(cpx.kp_x, cpx.kp_mask) if cfg.rl_dist_threshold > 0 else None
+
+        com = masked_com(cpx.lig_x, cpx.lig_mask)
+        lig_x = (cpx.lig_x - com[:, None]) * lm
+        kp_x = (cpx.kp_x - com[:, None]) * km
+
+        if t_eps_override is not None:
+            t_int, eps_x, eps_h = (torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a, device=dev)
+                                   for a in t_eps_override)
+            eps_x = eps_x.to(f32) * lm
+            eps_h = eps_h.to(f32) * lm
+        else:
+            t_int = torch.randint(0, cfg.n_timesteps, (b,), generator=generator, device=dev)
+            eps_x = torch.randn(cpx.lig_x.shape, generator=generator, device=dev, dtype=f32) * lm
+            eps_h = torch.randn(cpx.lig_h.shape, generator=generator, device=dev, dtype=f32) * lm
+        t = t_int.to(f32) / cfg.n_timesteps
+
+        gamma_t = self.schedule.gamma(t)
+        alpha_t = alpha_from_gamma(gamma_t)[:, None, None]
+        sigma_t = sigma_from_gamma(gamma_t)[:, None, None]
+        z_x = (alpha_t * lig_x + sigma_t * eps_x) * lm
+        z_h = (alpha_t * cpx.lig_h + sigma_t * eps_h) * lm
+
+        com2 = masked_com(z_x, cpx.lig_mask)
+        z_x = (z_x - com2[:, None]) * lm
+        kp_x = (kp_x - com2[:, None]) * km
+
+        eps_h_pred, eps_x_pred = self.dynamics(z_x, z_h, cpx.lig_mask, kp_x, cpx.kp_h, cpx.kp_mask, t, kk)
+
+        # torch.where (selection), not mask multiplication: repeat-padded batch
+        # rows have empty masks, the dynamics may give NaN there (0/0), and
+        # NaN * 0 would poison the sums
+        lig_sel = cpx.lig_mask[..., None]
+        if cfg.use_fake_atoms:
+            if cfg.fake_atom_loss_semantics == "executed":
+                # the reference reads the noised features' last channel
+                real = (cpx.lig_mask & (z_h[..., -1] != 0))[..., None]
+            else:
+                real = (cpx.lig_mask & (cpx.lig_h[..., -1] <= 0))[..., None]
+            x_loss = torch.sum(torch.square(torch.where(real, eps_x - eps_x_pred, 0.0)))
+            n_x = torch.clamp(torch.sum(real.to(z_x.dtype)) * 3.0, min=1.0)
+        else:
+            x_loss = torch.sum(torch.square(torch.where(lig_sel, eps_x - eps_x_pred, 0.0)))
+            n_x = torch.clamp(torch.sum(lm) * 3.0, min=1.0)
+        h_loss = torch.sum(torch.square(torch.where(lig_sel, eps_h - eps_h_pred, 0.0)))
+        n_h = torch.clamp(torch.sum(lm) * cpx.lig_h.shape[-1], min=1.0)
+
+        losses["l2"] = (x_loss + h_loss) / (n_x + n_h)
+        losses["pos"] = x_loss / n_x
+        losses["feat"] = h_loss / n_h
+        if cfg.rl_dist_threshold > 0:
+            losses["rl_hinge"] = self._rl_hinge(cpx, z_x, eps_x_pred, gamma_t, kp_x, init_kp_com)
+        return losses
+
+    def _rec_encoder_loss(self, cpx: PaddedComplex) -> torch.Tensor:
+        if self.rec_loss_type == "none":
+            return torch.zeros((), dtype=cpx.rec_x.dtype, device=cpx.device)
+        pts, pts_mask = (cpx.ip_x, cpx.ip_mask) if self.rec_loss_use_ip else (cpx.rec_x, cpx.rec_mask)
+        return ot_loss(cpx.kp_x, cpx.kp_mask, pts, pts_mask, **_ot_kwargs(self.rec_loss_kwargs))
+
+    def _rl_hinge(self, cpx, z_x, eps_x_pred, gamma_t, kp_x, init_kp_com):
+        """Receptor-ligand clash hinge on the one-shot denoised ligand, moved
+        back to the initial frame."""
+        alpha_t = alpha_from_gamma(gamma_t)[:, None, None]
+        sigma_t = sigma_from_gamma(gamma_t)[:, None, None]
+        lig_denoised = (z_x - sigma_t * eps_x_pred) / alpha_t
+        kp_com = masked_com(kp_x, cpx.kp_mask)
+        lig_world = lig_denoised - kp_com[:, None] + init_kp_com[:, None]
+        return masked_hinge_loss(lig_world, cpx.lig_mask, cpx.rec_x, cpx.rec_mask, self.cfg.rl_dist_threshold)
 
     # ---------------------------------------------------------------- sample
 
@@ -251,6 +358,10 @@ class KeypointDiffusion(nn.Module):
             out["frames_x"] = (f_x - f_kp_com[:, :, None] + init_kp_com[None, :, None]) * lm[None]
             out["frames_h"] = f_h * cfg.lig_feat_norm_constant
         return out
+
+
+def _ot_kwargs(loss_cfg: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: v for k, v in loss_cfg.items() if k in ("method", "sinkhorn_eps", "sinkhorn_iters")}
 
 
 def remove_fake_atoms(lig_h: torch.Tensor, lig_mask: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,9 @@ structure comes in from the encoder, dense (B, K, K) or a neighbor list
 (idx, valid). The timestep is appended as a feature channel, so the working
 width is hidden_nf + 1. Every dense edge type (ll, and kk while dense) goes
 through the CUDA edge kernel, as the JAX package's sampler does with
-`dynamics.use_pallas_sampling`.
+`dynamics.use_pallas_sampling`; while autograd records they take the
+kernel's plain version. `remat` recomputes each conv layer in the backward
+pass (torch.utils.checkpoint), storing only the layer boundaries.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Dict
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from kpdiff_tpu_torch.models.egnn import EGNNEdgeDense, EGNNEdgeKNNPairs, EGNNEdgeNbrList, NodeUpdate
 from kpdiff_tpu_torch.models.nn import MLP
@@ -84,7 +87,7 @@ class EGNNDynamics(nn.Module):
                  hidden_nf: int = 256, use_tanh: bool = False, message_norm: float = 1.0,
                  update_kp_feat: bool = False, norm: bool = False, ll_k: int = 0, kl_k: int = 0,
                  ll_cutoff: float = 9.0, compute_dtype: str = "float32",
-                 z_semantics: str = "intent"):
+                 z_semantics: str = "intent", remat: bool = False):
         super().__init__()
         if ll_k > 0:
             raise NotImplementedError("ll_k > 0 (kNN ll edges) is not ported yet")
@@ -96,6 +99,7 @@ class EGNNDynamics(nn.Module):
         self.kl_k = kl_k
         self.ll_cutoff = ll_cutoff
         self.z_semantics = z_semantics
+        self.remat = remat
         self.lig_encoder = MLP(atom_nf, [64, hidden_nf], ["silu", "silu"], gen)
         self.kp_encoder = (MLP(rec_nf, [2 * rec_nf, hidden_nf], ["silu", "silu"], gen)
                            if rec_nf != hidden_nf else None)
@@ -151,7 +155,11 @@ class EGNNDynamics(nn.Module):
         for i in range(self.n_layers):
             if not self.update_kp_feat:
                 h["kp"], x["kp"] = kp_h0, kp_x0
-            h, x = getattr(self, f"conv{i}")(h, x, edges, z, masks)
+            conv = getattr(self, f"conv{i}")
+            if self.remat and torch.is_grad_enabled():
+                h, x = checkpoint(conv, h, x, edges, z, masks, use_reentrant=False)
+            else:
+                h, x = conv(h, x, edges, z, masks)
 
         eps_h = self.lig_decoder(h["lig"][..., :-1])
         eps_x = x["lig"] - lig_x

@@ -64,7 +64,10 @@ class KeypointSampler:
         model.eval()
         return cls(config, model, batch_size=batch_size, seed=seed, **kwargs)
 
+    @torch.no_grad()
     def _run(self, cpx, init_com):
+        """Encode, compact kk and sample under no_grad, so that every dense
+        edge takes the CUDA kernel."""
         enc, kk = self.model.encode(cpx)
         kk = self.model.compact_kk(enc, kk, min_cap=self._kk_cap)
         if isinstance(kk, tuple):

@@ -1,6 +1,7 @@
-"""Where the port's reverse-diffusion steps spend their time on the card.
+"""Where the port's reverse-diffusion and training steps spend their time on the card.
 
     python3 -m kpdiff_tpu_torch.step_profile [--buckets 16 32 48] [--params NPZ] [--out FILE]
+    python3 -m kpdiff_tpu_torch.step_profile --train [--params NPZ] [--out FILE]
 
 Builds configs/egnn_40kp.yml at full width and depth (seeded random weights
 unless --params names a keystr npz), encodes a synthetic batch of 128
@@ -12,6 +13,13 @@ kernel on that bucket's path (ll and kk), one launch of the kernel's
 profiling build (-DEGNN_EDGE_PHASE_CLOCKS) on the inputs the path gave it:
 the share of the warps' SM clocks spent in each in-kernel phase. --out also
 writes the tables to a file.
+
+--train profiles flagship training instead: molgen's 256-complex split at
+full padding, batch 64, the port's train step; 3 warm-up steps, then 6
+steps under torch.profiler (wall and device ms per step, busy share, top
+kernels), then the dense edge's share: every EGNNEdgeDense call of one step
+(ll and kk, 12; the plain version under autograd) replayed forward and
+backward on its own inputs, timed with CUDA events.
 """
 from __future__ import annotations
 
@@ -24,7 +32,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import kpdiff_tpu_torch.models.egnn as egnn_mod
-from kpdiff_tpu_torch.config import PaddingConfig, load_config, model_from_config
+from kpdiff_tpu_torch.config import PaddingConfig, load_config, model_from_config, resolve_feature_sizes
 from kpdiff_tpu_torch.models.complex import synthetic_batch
 from kpdiff_tpu_torch.ops.cuda import egnn_edge
 from kpdiff_tpu_torch.utils.params_io import load_params, read_keystr_npz
@@ -42,12 +50,118 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def _kernel_table(prof, steps, wall):
+    """Device time per step summed over kernel rows, busy share, kernels per
+    step and the top kernels. A user annotation's row on the device (the
+    optimizer's step) repeats its kernels' time and is left out."""
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and _device_us(e) > 0
+              and not getattr(e, "is_user_annotation", False)]
+    device_s = sum(_device_us(e) for e in events) * 1e-6
+    events.sort(key=_device_us, reverse=True)
+    lines = [f"wall {wall / steps * 1e3:.3f} ms/step (profiled), device {device_s / steps * 1e3:.3f} ms/step, "
+             f"busy share {device_s / wall:.3f}, {sum(e.count for e in events) / steps:.0f} kernels/step"]
+    for e in events[:TOP]:
+        us = _device_us(e)
+        lines.append(f"  {us / steps / 1e3:9.4f} ms/step {us * 1e-6 / device_s * 100:6.2f}%  "
+                     f"{e.count // steps:5d}/step  {e.key[:90]}")
+    return lines
+
+
+def train_profile(args):
+    """Flagship training steps on the card: profiler table, then the dense edge's share."""
+    from kpdiff_tpu_torch.cli.train import train_config_from
+    from kpdiff_tpu_torch.data.dataset import PaddedLoader, resolve_lig_buckets
+    from kpdiff_tpu_torch.data.molgen import molgen_splits_for_config
+    from kpdiff_tpu_torch.training import trainer
+
+    cfg = load_config(CONFIG)
+    cfg["training"]["sample_interval"] = 0
+    model = model_from_config(cfg, device="cuda")
+    if args.params:
+        load_params(model, read_keystr_npz(args.params))
+    dev = next(model.parameters()).device
+    pad = PaddingConfig.from_config(cfg)
+    train_ds, _ = molgen_splits_for_config(cfg, pad, resolve_feature_sizes(cfg)[0], 256, 0)
+    buckets = resolve_lig_buckets(cfg, train_ds, pad.n_lig)
+    tcfg = train_config_from(cfg)
+    loader = PaddedLoader(train_ds, pad, tcfg.batch_size, pad.n_kp, model.cfg.rec_nf, seed=0, drop_last=True,
+                          lig_buckets=buckets)
+    batches = [b.to(dev) for _ in range(3) for b in loader.epoch()]  # 9 batches, buckets 24 and 32
+    state = trainer.init_train_state(model, tcfg)
+    step_fn = trainer.make_train_step(tcfg, len(train_ds) // tcfg.batch_size)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for b in batches[:3]:
+        step_fn(state, b, generator=gen)
+    torch.cuda.synchronize()
+    report = [f"{torch.cuda.get_device_name(0)}; {CONFIG} training; weights {args.params or 'random seed 0'}; "
+              f"batch {tcfg.batch_size}; buckets of the profiled steps {[int(b.lig_x.shape[1]) for b in batches[3:]]}"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[3:]:
+            step_fn(state, b, generator=gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report += _kernel_table(prof, len(batches) - 3, wall)
+
+    # the dense edges of one step, replayed forward and backward on their own inputs
+    calls = []
+    real_forward = egnn_mod.EGNNEdgeDense.forward
+
+    def capturing(mod, h_src, h_dst, x_src, x_dst, adj):
+        calls.append((mod, h_src.detach(), h_dst.detach(), x_src.detach(), x_dst.detach(), adj))
+        return real_forward(mod, h_src, h_dst, x_src, x_dst, adj)
+
+    egnn_mod.EGNNEdgeDense.forward = capturing
+    try:
+        for b in batches[3:5]:  # one batch of each bucket
+            del calls[:]
+            bucket = int(b.lig_x.shape[1])
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            step_fn(state, b, generator=gen)
+            end.record()
+            torch.cuda.synchronize()
+            step_ms = start.elapsed_time(end)
+            egnn_mod.EGNNEdgeDense.forward = real_forward
+            edge_ms = 0.0
+            for mod, *inputs in calls:
+                h_src, h_dst = (x.clone().requires_grad_() for x in inputs[:2])
+
+                def fwd_bwd():
+                    agg_h, agg_x = mod(h_src, h_dst, *inputs[2:])
+                    torch.autograd.backward((agg_h, agg_x), (torch.ones_like(agg_h), torch.ones_like(agg_x)))
+
+                fwd_bwd()
+                start.record()
+                for _ in range(3):
+                    fwd_bwd()
+                end.record()
+                torch.cuda.synchronize()
+                edge_ms += start.elapsed_time(end) / 3
+            model.zero_grad(set_to_none=True)
+            egnn_mod.EGNNEdgeDense.forward = capturing
+            report.append(f"bucket {bucket}: step {step_ms:.3f} ms (CUDA events); its {len(calls)} dense edge calls "
+                          f"(ll {bucket}, kk {pad.n_kp}) replayed forward and backward: {edge_ms:.3f} ms, "
+                          f"{edge_ms / step_ms * 100:.1f}% of the step")
+    finally:
+        egnn_mod.EGNNEdgeDense.forward = real_forward
+    report.append(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)")
+    print("\n".join(report), flush=True)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text("\n".join(report) + "\n")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--params", default=None)
     ap.add_argument("--buckets", type=int, nargs="+", default=[16, 32, 48])
+    ap.add_argument("--train", action="store_true", help="profile flagship training steps instead of sampling")
     ap.add_argument("--out", default=None, help="also write the report to this path")
     args = ap.parse_args()
+    if args.train:
+        return train_profile(args)
 
     cfg = load_config(CONFIG)
     model = model_from_config(cfg, device="cuda")
@@ -62,8 +176,9 @@ def main():
         cpx = synthetic_batch(0, batch=BATCH, n_rec_pad=pad.n_rec, n_lig_pad=n_lig, n_rec_feat=10,
                               n_lig_feat=10, n_kp=pad.n_kp, kp_feat_dim=model.cfg.rec_nf, n_ip_pad=pad.n_ip,
                               min_rec=260, min_lig=min(18, n_lig - 2), device=dev)
-        enc, kk = model.encode(cpx)
-        kk = model.compact_kk(enc, kk)
+        with torch.no_grad():
+            enc, kk = model.encode(cpx)
+            kk = model.compact_kk(enc, kk)
         gen = torch.Generator(device=dev).manual_seed(0)
         captured = {}  # the edge kernel's inputs, first launch at each shape
 
@@ -95,16 +210,8 @@ def main():
         finally:
             egnn_mod.egnn_edge_dense = real
         # kernel rows only: an operator's row repeats the time of the kernels it launched
-        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
-        device_s = sum(_device_us(e) for e in events) * 1e-6
-        events.sort(key=_device_us, reverse=True)
-        lines = [f"bucket {n_lig}: kk={'nbr' if isinstance(kk, tuple) else 'dense'} "
-                 f"wall {wall / STEPS * 1e3:.3f} ms/step (profiled), device {device_s / STEPS * 1e3:.3f} "
-                 f"ms/step, busy share {device_s / wall:.3f}"]
-        for e in events[:TOP]:
-            us = _device_us(e)
-            lines.append(f"  {us / STEPS / 1e3:9.4f} ms/step {us * 1e-6 / device_s * 100:6.2f}%  "
-                         f"{e.count // STEPS:5d}/step  {e.key[:90]}")
+        table = _kernel_table(prof, STEPS, wall)
+        lines = [f"bucket {n_lig}: kk={'nbr' if isinstance(kk, tuple) else 'dense'} {table[0]}"] + table[1:]
         # the edge kernel launch by launch: profiled device time beside active pairs
         kern = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
                        and "egnn_edge_" in e.name), key=lambda e: e.time_range.start)

@@ -9,6 +9,8 @@ Both map to the port's dotted parameter names (`dynamics.conv0.edge_ll.
 edge_lin2_w`). The port's modules name their parameters after the flax
 leaves and keep flax's (in, out) weight layout, so a leaf copies over
 unchanged. Loading raises on any missing, extra or mis-shaped leaf.
+`save_keystr_npz` writes the first style, which the JAX package's
+`load_params_npz` reads.
 """
 from __future__ import annotations
 
@@ -27,6 +29,15 @@ def keystr_to_name(key: str) -> str:
     if not parts or "".join(f"['{p}']" for p in parts) != key:
         raise ValueError(f"not a keystr path: {key!r}")
     return ".".join(parts)
+
+
+def name_to_keystr(name: str) -> str:
+    return "".join(f"['{p}']" for p in name.split("."))
+
+
+def save_keystr_npz(flat: Mapping[str, np.ndarray], path: str | Path) -> None:
+    """{dotted name: array} -> compressed npz keyed by keystr paths."""
+    np.savez_compressed(path, **{name_to_keystr(n): np.asarray(v) for n, v in flat.items()})
 
 
 def read_keystr_npz(path: str | Path) -> Dict[str, np.ndarray]:

@@ -14,31 +14,21 @@ from kpdiff_tpu_torch import config as tcfg
 from kpdiff_tpu_torch.device import resolve_device
 from kpdiff_tpu_torch.utils.params_io import (
     keystr_to_name, load_params, read_golden_params, read_keystr_npz)
+from torch_port_util import same
 
 ROOT = Path(__file__).resolve().parents[1]
 CONFIGS = sorted((ROOT / "configs").glob("*.yml"))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "kpdiff_tpu")
 
 
-def _same(a, b):
-    """Equality that also demands equal types (1 != 1.0 != True here)."""
-    if type(a) is not type(b):
-        return False
-    if isinstance(a, dict):
-        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
-    if isinstance(a, list):
-        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
-    return a == b
-
-
 @pytest.mark.parametrize("path", CONFIGS, ids=lambda p: p.name)
 def test_yaml_reader_matches_pyyaml(path):
-    assert _same(tcfg.load_config(path), yaml.safe_load(path.read_text()))
+    assert same(tcfg.load_config(path), yaml.safe_load(path.read_text()))
 
 
 def test_yaml_reader_scalars():
     doc = "a: 1.0e-5\nb: 1e-5\nc: [x, 'y z', 3]\nd: {k: true, m: ~}\ne:\n  - 1\n  - -2.5 # c\n"
-    assert _same(tcfg.parse_yaml(doc), yaml.safe_load(doc))
+    assert same(tcfg.parse_yaml(doc), yaml.safe_load(doc))
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=lambda p: p.name)
@@ -77,6 +67,11 @@ def test_entry_points_raise_without_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         KeypointSampler.from_params(ROOT / "configs/egnn_40kp.yml", None)
+    from kpdiff_tpu_torch.cli.train import main as train_main
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_main(["--config", str(ROOT / "configs/egnn_40kp.yml"), "--synthetic_mol", "8",
+                    "--set", "training.sample_interval=0"])
     assert resolve_device("cpu").type == "cpu"
 
 

@@ -1,7 +1,12 @@
-"""The port against the torch-free goldens that need no training path, read
-with tests/parity_jax.py::unflatten_case and held to the tolerances each
-case carries (as assert_case reads them for the JAX runner), and the port's
-serving API on the CPU."""
+"""The port against the torch-free goldens, read with
+tests/parity_jax.py::unflatten_case and held to the tolerances each case
+carries (as assert_case reads them for the JAX runner), and the port's
+serving API on the CPU.
+
+The chain_loss cases run the training loss on the injected (t, eps), as
+parity_jax.run_case runs them. refexec_chain_loss_fake_atoms_egnn is not in
+GOLDENS yet: it uses rec_encoder_type 'fixed', and the fixed encoder is not
+ported yet."""
 from pathlib import Path
 
 import numpy as np
@@ -54,7 +59,19 @@ def test_serving_api(tmp_path):
 
 GOLDENS = ["egnn_dynamics_mn0", "egnn_dynamics_mn1", "egnn_encoder", "refexec_chain_learned_egnn",
            "refexec_chain_two_pockets_egnn", "refexec_chain_frames_egnn", "refexec_egnn_dynamics_mn0_executed",
-           "refexec_egnn_encoder_executed"]
+           "refexec_egnn_encoder_executed", "refexec_chain_loss_egnn", "refexec_chain_loss_hinge_ip_egnn"]
+
+
+def _chain_complex(meta, inputs, cfg):
+    """The chain cases' complex (parity_jax._chain_complex): ligand arrays
+    default to zeros, interface points where the case has them."""
+    lig_mask = inputs["lig_mask"].astype(bool)
+    b, n_pad = lig_mask.shape
+    return make_complex(inputs["rec_x"], inputs["rec_h"], inputs["rec_mask"].astype(bool),
+                        inputs.get("lig_x", np.zeros((b, n_pad, 3), np.float32)),
+                        inputs.get("lig_h", np.zeros((b, n_pad, cfg.atom_nf), np.float32)),
+                        lig_mask, n_kp=meta["n_kp"], kp_feat_dim=meta["kp_feat_dim"], ip_x=inputs.get("ip_x"),
+                        ip_mask=inputs["ip_mask"].astype(bool) if "ip_mask" in inputs else None)
 
 
 @pytest.mark.parametrize("name", GOLDENS)
@@ -84,17 +101,18 @@ def test_golden_case(name):
                           rec_res_idx=t(inputs["rec_res_idx"].astype(np.int32))[None])
         enc, _ = model.encode(cpx)
         got = {"kp_x": enc.kp_x[0], "kp_h": enc.kp_h[0]}
+    elif kind == "chain_loss":
+        model = KeypointDiffusion(cfg)
+        load_params(model, flat)
+        got = model.loss(_chain_complex(meta, inputs, cfg),
+                         t_eps_override=(inputs["t_ints"].astype(np.int64), inputs["eps_x"], inputs["eps_h"]))
     else:
         assert kind == "chain_sample"
         model = KeypointDiffusion(cfg)
         load_params(model, flat)
-        lig_mask = inputs["lig_mask"].astype(bool)
-        b, n_pad = lig_mask.shape
-        cpx = make_complex(inputs["rec_x"], inputs["rec_h"], inputs["rec_mask"].astype(bool),
-                           np.zeros((b, n_pad, 3), np.float32), np.zeros((b, n_pad, cfg.atom_nf), np.float32),
-                           lig_mask, n_kp=meta["n_kp"], kp_feat_dim=meta["kp_feat_dim"])
-        enc, kk = model.encode(cpx)
-        got = model.sample(enc, kk, return_every=meta.get("return_every", 0),
-                           noise={k: inputs[k] for k in ("init_x", "init_h", "steps_x", "steps_h")})
+        with torch.no_grad():
+            enc, kk = model.encode(_chain_complex(meta, inputs, cfg))
+            got = model.sample(enc, kk, return_every=meta.get("return_every", 0),
+                               noise={k: inputs[k] for k in ("init_x", "init_h", "steps_x", "steps_h")})
     for k, v in expected.items():
         assert_close(got[k], v, rtol=meta.get("rtol", 5e-4), atol=meta.get("atol", 1e-4), msg=f"{name}:{k}")
