@@ -18,7 +18,14 @@ Phases, each timed on its own line; any failure raises (non-zero exit):
      launch of a 10-step chain with injected noise; the chain's free-running
      distance to the plain chain is reported beside that of two plain chains
      whose initial noise differs by one ulp;
-  5. serving: KeypointSampler answers three requests;
+  5. serving: a port run directory made from the trained weights
+     (config.yml, checkpoints/step_0.pt, and in its dataset.location the
+     size histogram of molgen's 4096-complex training split and a
+     two-pocket held-out split); KeypointSampler on it answers
+     sample_for_arrays with an int size, with 'ref' and with 'random' (two
+     chunks, two buckets), and sample_for_pocket on a synthetic receptor
+     PDB and reference SDF written here (pocket of 260-384 atoms, ligand of
+     24); batch 64, K=250; each request's latency split by part;
   6. train: flagship training from the trained weights on molgen data (256
      complexes, full padding): one batch of 4 through loss and backward on
      the card and on the CPU, f32 (gated) and bf16 (loss gated, gradients
@@ -27,7 +34,20 @@ Phases, each timed on its own line; any failure raises (non-zero exit):
      autograd), with device and host ms/step and peak memory; the held-out
      loss under no_grad through the kernel (12 launches per batch) against
      the same pass through the plain version; a checkpoint, its npz export
-     and one sampling request served from it.
+     and one sampling request served from it;
+  7. front ends: cli.byop on the receptor PDB and on its mmCIF rendering,
+     cli.sample on the two held-out pockets (--visualize), one POST
+     /sample_files to cli.serve_http on 127.0.0.1, and cli.train with the
+     config's own sample_interval (the analyzer fires once, full chain)
+     followed by export_params --best; output layouts, SDFs read back;
+  8. quality: benchmarks/strided_quality.py's protocol at K=250, eta 1 on
+     the trained weights (8 held-out molgen receptors x 12 replicates, 3
+     launches pooled, 288 molecules), gated on validity >= 0.95,
+     connectivity >= 0.72 and atom_type_kl <= 0.03, printed beside the
+     K=250 row of STRIDED_QUALITY.json.
+Every sampling path of phases 5, 7 and 8 is held to its kernel launch count:
+n_layers launches per reverse step for ll, as many again for kk while kk
+stays dense (12 a step at dense kk, 6 where compact_kk gives a neighbor list).
 Weights: the trained flagship, artifacts/egnn_40kp_trained_params.npz
 (--params names another keystr npz archive); the run fails without them.
 The last three lines are the kernel summary JSON, the card's name and power
@@ -38,26 +58,41 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import pickle
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
+import urllib.request
 from pathlib import Path
 
 import numpy as np
 import torch
 
 import kpdiff_tpu_torch.models.egnn as egnn_mod
-from kpdiff_tpu_torch.cli.export_params import export as export_params
+from kpdiff_tpu_torch.analysis.analyzer import ModelAnalyzer
+from kpdiff_tpu_torch.analysis.metrics import evaluate_samples
+from kpdiff_tpu_torch.analysis.molecule_builder import perceive_bonds
+from kpdiff_tpu_torch.cli import byop as byop_cli, sample as sample_cli, serve_http, train as train_cli
+from kpdiff_tpu_torch.cli.byop import process_ligand_and_pocket
+from kpdiff_tpu_torch.cli.export_params import best_step, export as export_params
+from kpdiff_tpu_torch.cli.import_params import make_run_dir as make_run_dir_from_params
 from kpdiff_tpu_torch.cli.train import evaluate, train_config_from
-from kpdiff_tpu_torch.config import PaddingConfig, load_config, model_from_config, resolve_feature_sizes
+from kpdiff_tpu_torch.config import PaddingConfig, dump_yaml, load_config, model_from_config, resolve_feature_sizes
 from kpdiff_tpu_torch.data.dataset import PaddedLoader, resolve_lig_buckets
-from kpdiff_tpu_torch.data.molgen import molgen_splits_for_config
+from kpdiff_tpu_torch.data.mmcif import write_mmcif
+from kpdiff_tpu_torch.data.molgen import molgen_splits_for_config, random_molecule, type_counts
+from kpdiff_tpu_torch.data.padding import pad_item, to_complex
+from kpdiff_tpu_torch.data.pdb import format_pdb_line, parse_pdb
+from kpdiff_tpu_torch.data.sdf import SdfMol, parse_sdf, write_sdf
 from kpdiff_tpu_torch.models.complex import synthetic_batch, synthetic_complex_np
+from kpdiff_tpu_torch.models.diffusion import KeypointDiffusion
+from kpdiff_tpu_torch.models.size_dist import save_dataset_histogram
 from kpdiff_tpu_torch.ops.cuda import egnn_edge
-from kpdiff_tpu_torch.serve import KeypointSampler
+from kpdiff_tpu_torch.serve import KeypointSampler, decode_ligands
 from kpdiff_tpu_torch.training import trainer
 from kpdiff_tpu_torch.utils.params_io import load_params, read_keystr_npz
 
@@ -77,6 +112,14 @@ TRAIN_STEPS = 20
 TIMED_FROM = 5  # steps 5..19 enter the median ms/step
 GRAD_TOL_F32 = 1e-3  # card vs CPU: max abs error of each gradient leaf over that leaf's max abs value
 LOSS_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # card vs CPU and kernel vs plain, relative, per loss term
+SERVE_BATCH = 64
+DEVICE = "cuda"  # of phases 5, 7 and 8 (the functions below also run on "cpu" at a reduced size)
+QUALITY_SPLIT, QUALITY_SEED = 4096, 42  # benchmarks/strided_quality.py: --dataset_size 4096, splits seeded 43 - 1
+QUALITY_RECEPTORS, QUALITY_REPLICATES, QUALITY_LAUNCHES, QUALITY_K = 8, 12, 3, 250
+QUALITY_GATES = dict(validity=(">=", 0.95), connectivity=(">=", 0.72), atom_type_kl=("<=", 0.03))
+RECORD_KEYS = ("n_sampled", "validity", "connectivity", "avg_frag_frac", "atom_validity", "uniqueness", "atom_type_kl",
+               "qed", "sa", "logp", "lipinski", "diversity", "props_backend")
+RESIDUE = (("N", "N"), ("CA", "C"), ("C", "C"), ("O", "O"), ("CB", "C"), ("CG", "C"), ("CD", "C"), ("OE1", "O"))
 
 
 def phase(name, t0):
@@ -368,21 +411,337 @@ def train_phase(params_path, seed, dev):
         sampler = KeypointSampler.from_params(CONFIG, npz, batch_size=64, device="cuda", seed=seed,
                                               sample_steps=STEPS)
         pocket = synthetic_complex_np(np.random.default_rng(seed + 4), 260, 20, 260, 20, 10, 10)
-        egnn_edge.launches = 0
-        mols = sampler.sample_for_arrays(pocket["rec_x"], pocket["rec_h"], pocket["rec_res_idx"],
-                                         init_com=pocket["lig_x"].mean(0), n_mols=8, ligand_size=20)
-        torch.cuda.synchronize()
-        serve_launches = egnn_edge.launches
-    if len(mols) != 8 or not all(np.isfinite(c).all() and c.shape == (20, 3) for c, _ in mols) or serve_launches <= 0:
-        raise RuntimeError(f"serving from the exported npz: {len(mols)} molecules, {serve_launches} kernel launches")
-    print(f"train export: checkpoint {ckpt.name}, npz served 8 molecules of 20 atoms with {serve_launches} "
-          f"kernel launches", flush=True)
+        with ChainLog(cfg["dynamics"]["n_layers"]) as log:
+            mols = sampler.sample_for_arrays(pocket["rec_x"], pocket["rec_h"], pocket["rec_res_idx"],
+                                             init_com=pocket["lig_x"].mean(0), n_mols=8, ligand_size=20)
+        serve_launches = log.check("train export -> serve")["launches"]
+    if sampler.last_request["chunks"][0]["sizes"] != [20] * 8:
+        raise RuntimeError(f"serving from the exported npz: chunks {sampler.last_request['chunks']}")
+    check_molecules("serving from the exported npz", mols, 20, need_bonds=False)
+    print(f"train export: checkpoint {ckpt.name}, npz served 8 molecules of 20 atoms ({len(mols)} built) with "
+          f"{serve_launches} kernel launches", flush=True)
     record = dict(data_s=data_s, buckets=buckets, train_complexes_per_bucket=per_bucket, card_vs_cpu=compare,
                   steps=rows, step_ms_device=dev_ms, step_ms_host=host_ms, median_ms_device=med_dev,
                   median_ms_host=med_host, median_ms_device_by_bucket=by_bucket, peak_memory_bytes=peak,
                   eval_kernel=ev_kernel, eval_plain=ev_plain, eval_rel_err=eval_err, eval_batches=len(eval_batches),
                   eval_launches=eval_launches, serve_launches=serve_launches)
     return record, dict(train_steps=train_launches, train_eval=eval_launches, train_serve=serve_launches)
+
+
+def sync():
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+class ChainLog:
+    """Counts the kernel launches a path must make: every reverse chain it
+    samples (KeypointDiffusion.sample) adds n_layers launches a step for ll
+    and as many for kk while kk is dense. Counts launches and chains from
+    zero when entered."""
+
+    def __init__(self, n_layers):
+        self.n_layers = n_layers
+
+    def __enter__(self):
+        self.chains, self.real = [], KeypointDiffusion.sample
+        log, real = self.chains, self.real
+
+        def logged(model, cpx, kk, *a, **kw):
+            steps = kw.get("sample_steps") or 0
+            n = steps if 0 < steps < model.cfg.n_timesteps else model.cfg.n_timesteps
+            log.append(dict(steps=n, kk="dense" if torch.is_tensor(kk) else f"nbr{int(kk[0].shape[-1])}",
+                            batch=int(cpx.lig_x.shape[0]), bucket=int(cpx.lig_x.shape[1])))
+            return real(model, cpx, kk, *a, **kw)
+
+        KeypointDiffusion.sample = logged
+        sync()
+        egnn_edge.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        sync()
+        KeypointDiffusion.sample = self.real
+        self.launches = egnn_edge.launches
+        self.steps = sum(c["steps"] for c in self.chains)
+        self.want = sum(c["steps"] * self.n_layers * (2 if c["kk"] == "dense" else 1) for c in self.chains)
+        self.layouts = sorted({c["kk"] for c in self.chains})
+
+    def check(self, label):
+        per_step = self.launches / max(self.steps, 1)
+        print(f"  {label}: {len(self.chains)} chains, {self.steps} reverse steps, kk {self.layouts}, "
+              f"{self.launches} kernel launches ({per_step:g} a step; expected {self.want})", flush=True)
+        if not self.chains or self.launches != self.want:
+            raise RuntimeError(f"{label}: {self.launches} kernel launches over {self.chains}, expected {self.want}")
+        return dict(launches=self.launches, steps=self.steps, chains=len(self.chains), kk=self.layouts,
+                    launches_per_step=per_step)
+
+
+def write_synthetic_complex(rng, out_dir, lig_elements, n_lig=24, n_res=60, min_dist=3.5, extent=12.0):
+    """A receptor PDB of n_res eight-atom residues placed around a molgen
+    ligand of n_lig atoms (no receptor atom within min_dist of it; residue
+    centres within `extent` of a ligand atom), and the ligand as an SDF with
+    its perceived bonds. At pocket_cutoff 8 its pocket holds 260-384 atoms."""
+    lig, types = random_molecule(rng, n_lig, lig_elements)
+    lig = (lig + 30.0).astype(np.float32)
+    centers = []
+    while len(centers) < n_res:
+        d = rng.normal(size=3)
+        c = lig[rng.integers(len(lig))] + d / np.linalg.norm(d) * rng.uniform(min_dist + 1.5, extent)
+        if np.linalg.norm(lig - c, axis=1).min() < min_dist + 1.5:
+            continue
+        if centers and np.linalg.norm(np.asarray(centers) - c, axis=1).min() < 4.2:
+            continue
+        centers.append(c)
+    lines = []
+    for r, c in enumerate(centers):
+        for name, el in RESIDUE:
+            x = c + rng.normal(scale=1.1, size=3)
+            while np.linalg.norm(lig - x, axis=1).min() < min_dist:
+                x = c + rng.normal(scale=1.1, size=3)
+            lines.append(format_pdb_line(len(lines) + 1, name, "GLU", "A", r + 1, *x, el))
+    pdb, sdf = Path(out_dir) / "receptor.pdb", Path(out_dir) / "ref_ligand.sdf"
+    pdb.write_text("\n".join(lines) + "\nEND\n")
+    els = [lig_elements[t] for t in types]
+    write_sdf([SdfMol("ref_ligand", els, lig, perceive_bonds(lig, els))], sdf)
+    return pdb, sdf
+
+
+def make_run_dir(root, params_path, train_ds, test_ds):
+    """A port run directory from a keystr npz: config.yml (the port's YAML
+    writer), checkpoints/step_0.pt, and a dataset.location holding the
+    size histogram of `train_ds` and the first two pockets of `test_ds` as
+    test.pkl."""
+    cfg = load_config(CONFIG)
+    data = Path(root) / "data"
+    data.mkdir(parents=True)
+    cfg["dataset"]["location"] = str(data)
+    save_dataset_histogram(train_ds, data)
+    test_ds.subset([0, 1]).to_pickle(data / "test.pkl")
+    return make_run_dir_from_params(cfg, params_path, Path(root) / "run"), cfg
+
+
+def check_molecules(label, mols, n_lig_max, need_bonds=True):
+    if need_bonds and not any(m.bonds for m in mols):
+        raise RuntimeError(f"{label}: {len(mols)} molecules, none with a bond")
+    for m in mols:
+        if not np.isfinite(m.coords).all() or m.coords.shape != (m.n_atoms, 3) or not 1 <= m.n_atoms <= n_lig_max:
+            raise RuntimeError(f"{label}: a molecule of {m.n_atoms} atoms, coordinates {m.coords.shape}")
+
+
+def serve_phase(run, cfg, pdb, sdf, seed, n_layers, tmp):
+    """Phase 5. Returns the sampler, its record and its kernel launches by path."""
+    sampler = KeypointSampler(run, batch_size=SERVE_BATCH, seed=seed, sample_steps=STEPS, device=DEVICE)
+    data = process_ligand_and_pocket(str(pdb), str(sdf), cfg)
+    n_ref = int(data["lig_pos"].shape[0])
+    outs = []
+    real_run = sampler._run
+
+    def checked_run(cpx, init_com):  # every chunk: finite coordinates, one ligand of each drawn size
+        out, layout = real_run(cpx, init_com)
+        outs.append((sorted(out["lig_mask"].sum(1).tolist()), bool(torch.isfinite(out["lig_x"]).all())))
+        return out, layout
+
+    sampler._run = checked_run
+    rows, paths = {}, {}
+    arrays = dict(rec_pos=data["rec_pos"], rec_feat=data["rec_feat"], rec_res_idx=data["rec_res_idx"],
+                  interface_points=data["interface_points"], init_com=data["lig_pos"].mean(0), ref_n_atoms=n_ref)
+    requests = (("serve_int", dict(n_mols=SERVE_BATCH, ligand_size=20)),
+                ("serve_ref", dict(n_mols=SERVE_BATCH, ligand_size="ref")),
+                ("serve_random", dict(n_mols=SERVE_BATCH + SERVE_BATCH // 2, ligand_size="random")),
+                ("serve_pocket", dict(n_mols=SERVE_BATCH, ligand_size="ref")))
+    for label, kw in requests:
+        outs.clear()
+        with ChainLog(n_layers) as log:
+            t0 = time.perf_counter()
+            if label == "serve_pocket":
+                mols = sampler.sample_for_pocket(pdb, sdf, **kw)
+            else:
+                mols = sampler.sample_for_arrays(**arrays, **kw)
+            latency = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        write_sdf([m.to_sdf_mol(title=f"{label}_{j}") for j, m in enumerate(mols)], Path(tmp) / f"{label}.sdf")
+        write_s = time.perf_counter() - t1
+        req = sampler.last_request
+        sizes = [s for c in req["chunks"] for s in c["sizes"]]
+        want = {"serve_int": [20] * kw["n_mols"]}.get(label, [n_ref] * kw["n_mols"])
+        if label == "serve_random":
+            if len(sizes) != kw["n_mols"] or len({c["bucket"] for c in req["chunks"]}) < 2:
+                raise RuntimeError(f"{label}: sizes {sizes} in chunks {req['chunks']}: not two buckets")
+        elif sizes != want:
+            raise RuntimeError(f"{label}: drew sizes {sizes}, expected {want}")
+        for (got_sizes, finite), c in zip(outs, req["chunks"]):
+            if not finite or got_sizes != sorted(c["sizes"]):
+                raise RuntimeError(f"{label}: chunk of sizes {c['sizes']} came out with sizes {got_sizes}, "
+                                   f"finite={finite}")
+        check_molecules(label, mols, max(sizes))
+        paths[label] = log.check(label)
+        parts = {k: req[k] for k in ("parse_pocket_s", "front_end_s", "sample_s", "copy_s", "build_s") if k in req}
+        rows[label] = dict(latency_s=latency, write_sdf_s=write_s, n_mols=kw["n_mols"], n_built=len(mols),
+                           n_bonded=sum(bool(m.bonds) for m in mols), chunks=req["chunks"], **parts,
+                           **({"pocket_atoms": req["pocket_atoms"]} if "pocket_atoms" in req else {}))
+        print(f"serve {label}: {latency:.3f} s for {kw['n_mols']} molecules ("
+              + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + f", write_sdf_s {write_s:.4f}); "
+              f"{len(mols)} built, {rows[label]['n_bonded']} with bonds; buckets "
+              f"{[c['bucket'] for c in req['chunks']]}", flush=True)
+    sampler._run = real_run
+    return sampler, dict(requests=rows, pocket_atoms=int(data["rec_pos"].shape[0]), ref_atoms=n_ref,
+                         interface_points=int(data["interface_points"].shape[0])), paths
+
+
+def frontends_phase(run, cfg, sampler, pdb, sdf, seed, n_layers, tmp):
+    """Phase 7: the byop, sample, serve_http and train CLIs on the card."""
+    tmp = Path(tmp)
+    rows, paths = {}, {}
+    cif = tmp / "receptor.cif"
+    write_mmcif(parse_pdb(pdb), cif)
+    for label, receptor in (("byop_pdb", pdb), ("byop_mmcif", cif)):
+        out = tmp / label
+        with ChainLog(n_layers) as log:
+            t0 = time.perf_counter()
+            mols = byop_cli.main(["--model_dir", str(run), "--receptor_file", str(receptor), "--ligand_file",
+                                  str(sdf), "--out", str(out), "--n_mols", str(SERVE_BATCH), "--sample_steps",
+                                  str(STEPS), "--ligand_size", "ref", "--seed", str(seed), "--device", DEVICE])
+            dt = time.perf_counter() - t0
+        back = parse_sdf(out / "raw_ligands.sdf")
+        n_kp = len((out / "keypoints.xyz").read_text().splitlines()) - 2
+        if len(back) != len(mols) or not (out / "pocket.pdb").is_file() or n_kp != cfg["graph"]["n_keypoints"]:
+            raise RuntimeError(f"{label}: {len(back)} of {len(mols)} molecules read back, {n_kp} keypoints")
+        check_molecules(label, mols, cfg["padding"]["n_lig"])
+        paths[label] = log.check(label)
+        rows[label] = dict(s=dt, n_built=len(mols), pocket_atoms=len(parse_pdb(out / "pocket.pdb")))
+        print(f"front end {label}: {dt:.3f} s, {len(mols)} molecules, pocket.pdb {rows[label]['pocket_atoms']} "
+              f"atoms", flush=True)
+
+    out = tmp / "sampled"
+    with ChainLog(n_layers) as log:
+        t0 = time.perf_counter()
+        sample_cli.main(["--model_dir", str(run), "--out", str(out), "--dataset_size", "2", "--samples_per_pocket",
+                         "32", "--max_batch_size", str(SERVE_BATCH), "--sample_steps", str(STEPS), "--max_tries", "2",
+                         "--visualize", "--seed", str(seed), "--device", DEVICE])
+        dt = time.perf_counter() - t0
+    tries = 0
+    for i in range(2):
+        pdir = out / f"pocket_{i}"
+        with open(pdir / "sample_time.pkl", "rb") as f:
+            st = pickle.load(f)
+        back = parse_sdf(pdir / "raw_ligands.sdf")
+        trajs = sorted((pdir / "trajectories").glob("*.sdf"))
+        if (set(st) != {"time", "n_valid", "n_tries", "batch"} or len(back) != st["n_valid"] or not back
+                or not all((pdir / f).is_file() for f in ("pocket.pdb", "keypoints.xyz", "sample_time.txt"))
+                or len(trajs) != min(len(back), 10) or not all(parse_sdf(p) for p in trajs)):
+            raise RuntimeError(f"sample CLI pocket_{i}: layout or SDFs wrong ({st}, {len(back)} read back, "
+                               f"{len(trajs)} trajectories)")
+        tries += st["n_tries"]
+        rows[f"sample_cli_pocket_{i}"] = st
+    paths["sample_cli"] = log.check("sample_cli")
+    if len(log.chains) != tries:
+        raise RuntimeError(f"sample CLI: {len(log.chains)} chains for {tries} tries")
+    print(f"front end sample_cli: {dt:.3f} s, " + "; ".join(
+        f"pocket_{i} {rows[f'sample_cli_pocket_{i}']['n_valid']} valid in {rows[f'sample_cli_pocket_{i}']['n_tries']} "
+        "tries" for i in range(2)), flush=True)
+
+    server = serve_http.make_server(sampler, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        body = json.dumps({"receptor_pdb": Path(pdb).read_text(), "ref_ligand_sdf": Path(sdf).read_text(),
+                           "n_mols": 16, "ligand_size": "ref"}).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{server.server_address[1]}/sample_files", data=body,
+                                     headers={"Content-Type": "application/json"}, method="POST")
+        with ChainLog(n_layers) as log:
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=300) as r:
+                status, payload = r.status, json.loads(r.read())
+            dt = time.perf_counter() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    (tmp / "http.sdf").write_text(payload.get("sdf", ""))
+    if status != 200 or payload["n"] < 1 or len(parse_sdf(tmp / "http.sdf")) != payload["n"]:
+        raise RuntimeError(f"POST /sample_files: status {status}, {payload.get('n')} molecules")
+    paths["serve_http"] = log.check("serve_http")
+    rows["serve_http"] = dict(s=dt, n=payload["n"])
+    print(f"front end serve_http: POST /sample_files {dt:.3f} s, {payload['n']} molecules", flush=True)
+
+    # the train CLI with the config's own sample_interval: the analyzer fires at epoch ~0
+    cfg_path = tmp / "train.yml"
+    train_cfg = load_config(CONFIG)
+    train_cfg["experiment"]["results_dir"] = str(tmp / "runs")
+    cfg_path.write_text(dump_yaml(train_cfg))
+    analyzer_logs = []
+    real_analyze = ModelAnalyzer.sample_and_analyze
+
+    def logged_analyze(self, *a, **kw):
+        with ChainLog(n_layers) as alog:
+            t0 = time.perf_counter()
+            m = real_analyze(self, *a, **kw)
+            alog.seconds = time.perf_counter() - t0
+        analyzer_logs.append(alog)
+        return m
+
+    ModelAnalyzer.sample_and_analyze = logged_analyze
+    try:
+        t0 = time.perf_counter()
+        run_dir, state = train_cli.main(["--config", str(cfg_path), "--device", DEVICE, "--synthetic_mol",
+                                         str(TRAIN_COMPLEXES), "--epochs", "1", "--seed", str(seed)])
+        dt = time.perf_counter() - t0
+    finally:
+        ModelAnalyzer.sample_and_analyze = real_analyze
+    test_rows = trainer.MetricsLog(run_dir / "test_metrics.pkl").rows
+    mol_rows = [r for r in test_rows if "mol_connectivity" in r]
+    if train_cfg["training"]["sample_interval"] <= 0 or len(analyzer_logs) != 1 or len(mol_rows) != 1:
+        raise RuntimeError(f"train CLI: analyzer ran {len(analyzer_logs)} times, {len(mol_rows)} mol_* rows")
+    paths["train_cli_analyzer"] = analyzer_logs[0].check("train_cli_analyzer")
+    step = best_step(run_dir)
+    export_params(run_dir, tmp / "best.npz", step)
+    load_params(model_from_config(load_config(run_dir / "config.yml"), device="cpu"), read_keystr_npz(tmp / "best.npz"))
+    rows["train_cli"] = dict(s=dt, steps=state.step, analyzer_s=analyzer_logs[0].seconds, best_step=step,
+                             mol_row={k: v for k, v in mol_rows[0].items() if not isinstance(v, str)})
+    print(f"front end train CLI: {state.step} steps and the analyzer in {dt:.3f} s (analyzer "
+          f"{analyzer_logs[0].seconds:.3f} s, mol_connectivity {mol_rows[0]['mol_connectivity']:.4f}, "
+          f"mol_validity {mol_rows[0]['mol_validity']:.4f}); export_params --best -> step {step}", flush=True)
+    return rows, paths
+
+
+def quality_phase(model, cfg, train_ds, test_ds, seed, n_layers):
+    """Phase 8: benchmarks/strided_quality.py's protocol on the port at K=QUALITY_K."""
+    pad = PaddingConfig.from_config(cfg)
+    lig_elements = cfg["dataset"]["lig_elements"]
+    idxs = np.random.default_rng(50).choice(len(test_ds), size=QUALITY_RECEPTORS, replace=False)
+    items = []
+    for i in idxs:
+        it = pad_item(test_ds.get(int(i)), pad, n_lig_feat_out=model.cfg.atom_nf)
+        if it is not None:
+            items.extend([it] * QUALITY_REPLICATES)
+    cpx = to_complex(items, pad, model.cfg.rec_nf, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 250)
+    ligands = []
+    with ChainLog(n_layers) as log, torch.no_grad():
+        t0 = time.perf_counter()
+        enc, kk = model.encode(cpx)
+        kk = model.compact_kk(enc, kk)
+        for _ in range(QUALITY_LAUNCHES):
+            ligands.extend(decode_ligands(model.sample(enc, kk, sample_steps=QUALITY_K, eta=1.0, generator=gen),
+                                          lig_elements))
+        sample_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    metrics = evaluate_samples([c for c, _ in ligands], [e for _, e in ligands],
+                               train_type_counts=type_counts(train_ds), element_list=lig_elements)
+    metrics_s = time.perf_counter() - t0
+    record = next(r for r in json.loads(Path("STRIDED_QUALITY.json").read_text())["rows"] if r["K"] == QUALITY_K)
+    print(f"quality K={QUALITY_K} eta=1, {len(ligands)} molecules ({len(items)} x {QUALITY_LAUNCHES} launches; "
+          f"sampling {sample_s:.3f} s, metrics {metrics_s:.3f} s); port | STRIDED_QUALITY.json K={QUALITY_K}:", flush=True)
+    for k in RECORD_KEYS:
+        ci = f" +- {record[k + '_ci95']}" if k + "_ci95" in record else ""
+        print(f"  {k}: {metrics.get(k)} | {record.get(k)}{ci}", flush=True)
+    path = log.check("quality")
+    failed = {k: metrics.get(k) for k, (op, lim) in QUALITY_GATES.items()
+              if metrics.get(k) is None or not (metrics[k] >= lim if op == ">=" else metrics[k] <= lim)}
+    if len(ligands) != QUALITY_RECEPTORS * QUALITY_REPLICATES * QUALITY_LAUNCHES or failed:
+        raise RuntimeError(f"quality: {len(ligands)} molecules; gates {QUALITY_GATES} failed by {failed}")
+    return dict(port=metrics, record={k: record.get(k) for k in RECORD_KEYS}, gates=QUALITY_GATES,
+                n_molecules=len(ligands), sample_s=sample_s, metrics_s=metrics_s), path
 
 
 def main():
@@ -546,30 +905,38 @@ def main():
     del encoded
     phase("slice", t0)
 
-    # ---- 5. serving: three requests
+    # ---- 5. serving: a run directory from the trained weights; four requests
     t0 = time.perf_counter()
     del model, enc, kk, out_k, out_p, out_pu
-    sampler = KeypointSampler.from_params(CONFIG, args.params, batch_size=64, device="cuda", seed=args.seed,
-                                          sample_steps=STEPS)
-    srng = np.random.default_rng(args.seed + 2)
-    serve_rows = []
-    for n_rec, n_mols, size in ((150, 8, 14), (260, 32, 22), (380, 64, 30)):
-        pocket = synthetic_complex_np(srng, n_rec, size, n_rec, size, 10, 10)
-        t1 = time.perf_counter()
-        mols = sampler.sample_for_arrays(pocket["rec_x"], pocket["rec_h"], pocket["rec_res_idx"],
-                                         init_com=pocket["lig_x"].mean(0), n_mols=n_mols, ligand_size=size)
-        dt = time.perf_counter() - t1
-        if len(mols) != n_mols or not all(np.isfinite(c).all() and c.shape == (size, 3) for c, _ in mols):
-            raise RuntimeError(f"serving request ({n_rec} pocket atoms, {n_mols} mols) returned bad molecules")
-        serve_rows.append(dict(pocket_atoms=n_rec, n_mols=n_mols, ligand_size=size, latency_s=dt))
-        print(f"serve request: pocket {n_rec} atoms, {n_mols} mols of {size} atoms: {dt:.3f} s", flush=True)
-    del sampler
+    tmp_root = tempfile.TemporaryDirectory()
+    tmp = Path(tmp_root.name)
+    t1 = time.perf_counter()
+    q_train, q_test = molgen_splits_for_config(cfg, pad, resolve_feature_sizes(cfg)[0], QUALITY_SPLIT, QUALITY_SEED)
+    run, run_cfg = make_run_dir(tmp, args.params, q_train, q_test)
+    pdb, sdf = write_synthetic_complex(np.random.default_rng(args.seed + 2), tmp, cfg["dataset"]["lig_elements"])
+    print(f"serve setup: molgen splits {len(q_train)} / {len(q_test)} (seed {QUALITY_SEED}), run dir, receptor "
+          f"and ligand in {time.perf_counter() - t1:.3f} s", flush=True)
+    sampler, serve_record, serve_paths = serve_phase(run, run_cfg, pdb, sdf, args.seed, n_layers, tmp)
+    if not 260 <= serve_record["pocket_atoms"] <= pad.n_rec:
+        raise RuntimeError(f"synthetic receptor: pocket of {serve_record['pocket_atoms']} atoms")
     phase("serve", t0)
 
     # ---- 6. train: flagship training steps, held-out loss, export -> serve
     t0 = time.perf_counter()
     train_record, train_paths = train_phase(args.params, args.seed, dev)
     phase("train", t0)
+
+    # ---- 7. front ends: byop (PDB, mmCIF), sample CLI, HTTP server, train CLI with the analyzer
+    t0 = time.perf_counter()
+    front_record, front_paths = frontends_phase(run, run_cfg, sampler, pdb, sdf, args.seed, n_layers, tmp)
+    phase("frontends", t0)
+
+    # ---- 8. quality on held-out molgen pockets against STRIDED_QUALITY.json
+    t0 = time.perf_counter()
+    quality_record, quality_path = quality_phase(sampler.model, run_cfg, q_train, q_test, args.seed, n_layers)
+    del sampler
+    tmp_root.cleanup()
+    phase("quality", t0)
 
     total = time.perf_counter() - t_all
     print(f"total wall: {total:.3f} s", flush=True)
@@ -580,13 +947,16 @@ def main():
         "shape": head["shape"], "max_abs_err": head["max_abs_err"], "max_rel_err_bf16": head["max_rel_err"],
         "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-        "launches_by_path": dict(sample=main_launches, **train_paths),
+        "launches_by_path": dict(sample=main_launches, **{k: v["launches"] for k, v in serve_paths.items()},
+                                 **train_paths, **{k: v["launches"] for k, v in front_paths.items()},
+                                 quality=quality_path["launches"]),
         "shapes": list(main_rows.values()) + shape_rows,
     }]}
     record = dict(card=card, device=torch.cuda.get_device_name(0), weights=weights, slice=slice_rows,
                   mixture_s_per_ligand=mixture, chain_step_max_rel_err=chain_step_err,
-                  chain_free_max_rel_diff=chain_free, chain_one_ulp_max_rel_diff=chain_ulp, serve=serve_rows,
-                  train=train_record, total_wall_s=total, **kernels)
+                  chain_free_max_rel_diff=chain_free, chain_one_ulp_max_rel_diff=chain_ulp, serve=serve_record,
+                  train=train_record, frontends=front_record, quality=quality_record,
+                  paths={**serve_paths, **front_paths, "quality": quality_path}, total_wall_s=total, **kernels)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1))

@@ -1,7 +1,6 @@
 """Training CLI of the port (kpdiff_tpu/cli/train.py).
 
-    python -m kpdiff_tpu_torch.cli.train --config configs/egnn_40kp.yml \
-        --synthetic_mol 256 --set training.sample_interval=0
+    python -m kpdiff_tpu_torch.cli.train --config configs/egnn_40kp.yml --synthetic_mol 256
     python -m kpdiff_tpu_torch.cli.train --resume runs/<run_dir>
 
 Trains on one CUDA card by default and raises without one (`--device cpu`
@@ -9,9 +8,11 @@ runs the plain PyTorch path on the CPU). A run directory holds config.yml,
 train_metrics.pkl, test_metrics.pkl and checkpoints/step_N.pt (parameters,
 optimizer state and step); `cli/export_params.py` turns a checkpoint into
 the keystr npz that both packages load. Metrics go to the pickle logs and
-stdout only. Not ported yet: data-parallel and keypoint-sharded training
-(`--n_devices`, `--mp_devices` other than 1) and the in-training molecule
-analyzer (`training.sample_interval` > 0); both raise NotImplementedError.
+stdout only. Every `training.sample_interval` epochs, from epoch ~0 on, the
+molecule analyzer (analysis/analyzer.py) samples a few held-out pockets and
+appends its `mol_*` row to test_metrics.pkl (`export_params --best` reads
+them). Not ported yet: data-parallel and keypoint-sharded training
+(`--n_devices`, `--mp_devices` other than 1 raise NotImplementedError).
 """
 from __future__ import annotations
 
@@ -59,16 +60,11 @@ def apply_overrides(config, overrides):
     return config
 
 
-def _check_ported(args, config):
+def _check_ported(args):
     if args.n_devices != 1 or args.mp_devices != 1:
         raise NotImplementedError(
             f"--n_devices {args.n_devices} --mp_devices {args.mp_devices}: multi-device training "
             "(data parallel, keypoint sharding) is not ported yet; pass 1")
-    if config.get("training", {}).get("sample_interval", 0):
-        raise NotImplementedError(
-            "training.sample_interval > 0 samples molecules through the analyzer "
-            "(kpdiff_tpu/analysis/analyzer.py), which is not ported yet; pass "
-            "--set training.sample_interval=0")
 
 
 def main(argv=None):
@@ -86,13 +82,12 @@ def main(argv=None):
                                                    make_train_step, save_checkpoint)
 
     dev = resolve_device(args.device)
+    _check_ported(args)
     if args.resume:
         run_dir = Path(args.resume)
         config = apply_overrides(load_config(run_dir / "config.yml"), args.set)
-        _check_ported(args, config)
     else:
         config = apply_overrides(load_config(args.config), args.set)
-        _check_ported(args, config)
         name = config.get("experiment", {}).get("name", "run")
         results_dir = Path(config.get("experiment", {}).get("results_dir", "runs/"))
         run_dir = results_dir / f"{name}_{time.strftime('%Y%m%d_%H%M%S')}_{uuid.uuid4().hex[:4]}"
@@ -158,6 +153,21 @@ def main(argv=None):
     if ((config.get("wandb") or {}).get("init_kwargs") or {}).get("mode", "disabled") != "disabled":
         print("wandb is not used by the port; metrics go to the pickle logs only", flush=True)
 
+    # in-training molecule-quality analyzer (reference ModelAnalyzer, train.py:555-572), with the
+    # training split's atom-type histogram for its KL metric
+    from kpdiff_tpu_torch.analysis.analyzer import ModelAnalyzer
+    from kpdiff_tpu_torch.data.molgen import type_counts
+
+    samp_cfg = config.get("sampling_config", {})
+    analyzer = ModelAnalyzer(
+        model, test_ds, pad, lig_elements=ds_cfg["lig_elements"],
+        n_receptors=min(samp_cfg.get("n_receptors", 2), 8), n_replicates=min(samp_cfg.get("n_replicates", 4), 12),
+        train_type_counts=type_counts(train_ds), seed=args.seed + 11,
+        diff_batch_size=samp_cfg.get("diff_batch_size", 0))
+    sample_interval = tr.get("sample_interval", 0)
+    # fire once at epoch ~0, so that the run records the untrained baseline
+    last_sample_marker = -sample_interval if sample_interval else 0.0
+
     test_interval = tr.get("test_interval", 1)
     save_interval = tr.get("save_interval", 1)
     metrics_interval = tr.get("train_metrics_interval", 0.1)
@@ -218,6 +228,13 @@ def main(argv=None):
                 test_row["epoch"] = epoch_exact
                 test_log.append(**test_row)
                 print(f"  test: {test_row}", flush=True)
+
+            if sample_interval and epoch_exact - last_sample_marker >= sample_interval:
+                last_sample_marker = epoch_exact
+                mol_metrics = analyzer.sample_and_analyze(generator)
+                mol_metrics["epoch"] = epoch_exact
+                test_log.append(**{f"mol_{k}": v for k, v in mol_metrics.items()})
+                print(f"  molecules: {mol_metrics}", flush=True)
 
             if epoch_exact - last_save_marker >= save_interval:
                 last_save_marker = epoch_exact

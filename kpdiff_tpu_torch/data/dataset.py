@@ -68,6 +68,25 @@ class ComplexDataset:
             lig_files=data.get("lig_files"),
         )
 
+    def to_pickle(self, path: str | Path) -> None:
+        """Write the split as numpy arrays under the processed pickles' keys
+        (what `from_pickle` and the sample CLI's `{split}.pkl` read)."""
+        data = {k: getattr(self, k) for k in ("lig_pos", "lig_feat", "rec_pos", "rec_feat", "rec_res_idx",
+                                              "interface_points", "rec_segments", "lig_segments", "ip_segments")}
+        data.update(rec_files=self.rec_files, lig_files=self.lig_files)
+        with open(path, "wb") as f:
+            pickle.dump(data, f)
+
+    def subset(self, idxs) -> "ComplexDataset":
+        """The complexes at `idxs`, in that order, as a new split."""
+        items = [self.get(int(i)) for i in idxs]
+        seg = lambda k: np.concatenate([[0], np.cumsum([it[k].shape[0] for it in items])])
+        cat = lambda k: np.concatenate([it[k] for it in items])
+        files = lambda f: [f[int(i)] for i in idxs] if f else None
+        return ComplexDataset(cat("lig_pos"), cat("lig_feat"), cat("rec_pos"), cat("rec_feat"), cat("rec_res_idx"),
+                              cat("interface_points"), seg("rec_pos"), seg("lig_pos"), seg("interface_points"),
+                              files(self.rec_files), files(self.lig_files))
+
     def __len__(self) -> int:
         return len(self.lig_segments) - 1
 

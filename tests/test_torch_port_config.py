@@ -70,8 +70,17 @@ def test_entry_points_raise_without_cuda():
     from kpdiff_tpu_torch.cli.train import main as train_main
 
     with pytest.raises(RuntimeError, match="CUDA"):
-        train_main(["--config", str(ROOT / "configs/egnn_40kp.yml"), "--synthetic_mol", "8",
-                    "--set", "training.sample_interval=0"])
+        train_main(["--config", str(ROOT / "configs/egnn_40kp.yml"), "--synthetic_mol", "8"])
+    # the run-directory constructor and the serving CLIs check the device before they read the run
+    run = ROOT / "runs" / "absent_run"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        KeypointSampler(run)
+    from kpdiff_tpu_torch.cli import byop, sample, serve_http
+
+    for main, argv in ((byop.main, ["--receptor_file", "r.pdb", "--ligand_file", "l.sdf"]), (sample.main, []),
+                       (serve_http.main, [])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(["--model_dir", str(run)] + argv)
     assert resolve_device("cpu").type == "cpu"
 
 

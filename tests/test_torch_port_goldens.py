@@ -15,6 +15,7 @@ import torch
 import yaml
 
 from kpdiff_tpu.config import load_config as jload
+from kpdiff_tpu_torch.analysis.molecule_builder import BuiltMolecule
 from kpdiff_tpu_torch.config import model_from_config as tmodel
 from kpdiff_tpu_torch.models.complex import make_complex, synthetic_batch as tsyn
 from kpdiff_tpu_torch.models.diffusion import DiffusionConfig, KeypointDiffusion, dynamics_from_config
@@ -29,7 +30,11 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def test_serving_api(tmp_path):
-    """from_params on a reduced egnn_40kp config and a keystr npz archive."""
+    """from_params on a reduced egnn_40kp config and a keystr npz archive:
+    six molecules of 11 atoms sampled on the CPU (no kernel launch), the
+    ones that build come back as BuiltMolecules; ligand_size='random'
+    needs the size histogram in dataset.location, which this config's
+    location lacks."""
     cfg = jload(ROOT / "configs/egnn_40kp.yml")
     cfg["dynamics"].update(n_layers=2, hidden_nf=16)
     cfg["rec_encoder"].update(n_convs=2, hidden_n_node_feat=16, out_n_node_feat=12)
@@ -49,11 +54,13 @@ def test_serving_api(tmp_path):
                                      pocket.rec_res_idx[0, :n_rec].numpy(), init_com=np.zeros(3, np.float32),
                                      n_mols=6, ligand_size=11)
     assert egnn_edge.launches == before
-    assert len(mols) == 6
-    for coords, elements in mols:
-        assert coords.shape == (11, 3) and np.isfinite(coords).all()
-        assert len(elements) == 11 and set(elements) <= set(cfg["dataset"]["lig_elements"])
-    with pytest.raises(NotImplementedError):
+    assert sampler.last_request["chunks"] == [dict(batch=4, bucket=16, kk="dense", sizes=[11] * 4),
+                                              dict(batch=2, bucket=16, kk="dense", sizes=[11] * 2)]
+    assert len(mols) <= 6
+    for m in mols:
+        assert isinstance(m, BuiltMolecule) and 1 <= m.n_atoms <= 11 and np.isfinite(m.coords).all()
+        assert len(m.elements) == m.n_atoms and set(m.elements) <= set(cfg["dataset"]["lig_elements"])
+    with pytest.raises(FileNotFoundError, match="train_n_node_joint_dist.pkl"):
         sampler.sample_for_arrays(pocket.rec_x[0].numpy(), pocket.rec_h[0].numpy(), ligand_size="random")
 
 

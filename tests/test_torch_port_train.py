@@ -309,12 +309,15 @@ def test_exported_params_load_in_jax_and_the_sampler(cli_run, tmp_path):
     rng = np.random.default_rng(0)
     mols = sampler.sample_for_arrays(rng.normal(size=(40, 3)).astype(np.float32) * 4,
                                      np.eye(10, dtype=np.float32)[rng.integers(0, 10, 40)], n_mols=3, ligand_size=9)
-    assert len(mols) == 3 and all(np.isfinite(c).all() and c.shape == (9, 3) for c, _ in mols)
+    assert sampler.last_request["chunks"][0]["sizes"] == [9, 9, 9]
+    assert len(mols) <= 3 and all(np.isfinite(m.coords).all() and 1 <= m.n_atoms <= 9 for m in mols)
 
 
 @pytest.mark.parametrize("argv,training", [(["--n_devices", "2"], {}), (["--mp_devices", "2"], {}),
-                                           ([], {"sample_interval": 30})])
+                                           (["--n_devices", "0"], {"sample_interval": 30})])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, argv, training):
+    """Multi-device training raises before a run dir is made (the analyzer,
+    sample_interval > 0, is ported: test_torch_port_serve.py)."""
     cfg_path = _cli_config(tmp_path, **training)
     with pytest.raises(NotImplementedError):
         tcli.main(["--config", str(cfg_path), "--synthetic_mol", "8", "--device", "cpu"] + argv)
@@ -340,7 +343,7 @@ def test_sampling_takes_the_kernel_entry_with_a_differentiable_encoder(tmp_path,
         mols = sampler.sample_for_arrays(rng.normal(size=(40, 3)).astype(np.float32) * 3,
                                          np.eye(10, dtype=np.float32)[rng.integers(0, 10, 40)], n_mols=4,
                                          ligand_size=10)
-    assert len(mols) == 4
+    assert len(mols) <= 4 and sampler.last_request["chunks"][0]["sizes"] == [10] * 4
     n_layers, k = 2, 6
     assert len(calls) in (n_layers * 3, 2 * n_layers * 3)  # ll, plus kk while it stays dense
     assert calls.count(k) in (0, n_layers * 3) and len(calls) - calls.count(k) == n_layers * 3
