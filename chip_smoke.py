@@ -8,9 +8,10 @@ Phases, each timed on its own line; any failure raises (non-zero exit):
      kpdiff_tpu_torch/_build/ (loaded with ctypes);
   3. kernel: the dense EGNN edge kernel against its plain PyTorch version
      on seeded random inputs at the flagship shapes (B=128, H=257, Ns=Nd in
-     16/32/48 for ll and 40 for kk) and with many sources (B=16, Nd=48,
-     Ns=192 and 384, as block kk windows and large dense kk give it), bf16
-     and f32, with times;
+     16/32/48 for ll and 40 for kk), with many sources (B=16, Nd=48, Ns=192
+     and 384), and at the other families' shapes (width 256 at kk40 and
+     ll32, K=20, kk 128 x 128 at B=32, block windows of 192 sources to 64
+     destinations over B*6 rows), bf16 and f32, with times;
   4. slice: configs/egnn_40kp.yml at full width and depth, batch 128, ligand
      buckets 16/32/48: encode -> compact_kk -> 250-step strided sampling
      through the kernel, launch counts checked; then the kernel held against
@@ -44,12 +45,25 @@ Phases, each timed on its own line; any failure raises (non-zero exit):
      the trained weights (8 held-out molgen receptors x 12 replicates, 3
      launches pooled, 288 molecules), gated on validity >= 0.95,
      connectivity >= 0.72 and atom_type_kl <= 0.03, printed beside the
-     K=250 row of STRIDED_QUALITY.json.
-Every sampling path of phases 5, 7 and 8 is held to its kernel launch count:
-n_layers launches per reverse step for ll, as many again for kk while kk
-stays dense (12 a step at dense kk, 6 where compact_kk gives a neighbor list).
+     K=250 row of STRIDED_QUALITY.json;
+  9. families: every other config of configs/ at full width and depth,
+     seeded weights, batch 32 (family_phase): encode -> compact_kk -> a K=50
+     chain; for egnn_ca and egnn_all_atom a 5-step chain on the encoder's own
+     kk (dense 128 x 128, blocks) with every launch against the plain
+     version; loss and gradients on the card against the CPU (f32, dropout
+     0); 5 optimizer steps with the config's dropout, remat and grad_accum,
+     ms/step and peak memory; the kernel against its plain version on each
+     new shape's first launch; then phase 8's protocol on the trained GVP
+     artifacts/gvp_40kp_trained_params.npz, gated on validity >= 0.95,
+     connectivity >= 0.82 and atom_type_kl <= 0.03, beside
+     STRIDED_QUALITY_GVP.json's K=250 row.
+Every sampling path is held to its kernel launch count (ChainLog): for EGNN,
+n_layers launches per reverse step for ll and as many again for kk while it
+is dense or in blocks (12 a step; 6 where compact_kk gives a neighbor list);
+none for GVP, whose messages run in plain PyTorch.
 Weights: the trained flagship, artifacts/egnn_40kp_trained_params.npz
-(--params names another keystr npz archive); the run fails without them.
+(--params names another keystr npz archive), and the trained gvp_40kp; the
+run fails without them.
 The last three lines are the kernel summary JSON, the card's name and power
 limit, and the device JSON.
 """
@@ -57,6 +71,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import pickle
 import statistics
@@ -119,6 +134,12 @@ QUALITY_RECEPTORS, QUALITY_REPLICATES, QUALITY_LAUNCHES, QUALITY_K = 8, 12, 3, 2
 QUALITY_GATES = dict(validity=(">=", 0.95), connectivity=(">=", 0.72), atom_type_kl=("<=", 0.03))
 RECORD_KEYS = ("n_sampled", "validity", "connectivity", "avg_frag_frac", "atom_validity", "uniqueness", "atom_type_kl",
                "qed", "sa", "logp", "lipinski", "diversity", "props_backend")
+FAMILIES = ("egnn_20kp", "egnn_40kp_fast", "egnn_ca", "egnn_all_atom", "gvp_20kp", "gvp_40kp", "gvp_ca",
+            "gvp_all_atom", "dev_config")  # phase 9: every config of configs/ besides the flagship
+FAMILY_BATCH, FAMILY_K, FAMILY_TRAIN_STEPS, FAMILY_OWN_KK_STEPS = 32, 50, 5, 5
+OWN_KK = ("egnn_ca", "egnn_all_atom")  # fixed-encoder EGNN families whose own kk (dense 128 x 128, blocks) feeds the kernel
+GVP_PARAMS = "artifacts/gvp_40kp_trained_params.npz"
+GVP_QUALITY_GATES = dict(validity=(">=", 0.95), connectivity=(">=", 0.82), atom_type_kl=("<=", 0.03))
 RESIDUE = (("N", "N"), ("CA", "C"), ("C", "C"), ("O", "O"), ("CB", "C"), ("CG", "C"), ("CD", "C"), ("OE1", "O"))
 
 
@@ -250,7 +271,9 @@ def card_vs_cpu(cfg, flat, batch, t_eps, dev, dtype_name):
     and (t, eps). Returns the worst relative loss-term error and per-leaf
     gradient errors (max abs error over the leaf's max abs value)."""
     cfg = copy.deepcopy(cfg)
-    cfg["dynamics"]["compute_dtype"] = cfg["rec_encoder"]["compute_dtype"] = dtype_name
+    for section in ("dynamics", "rec_encoder", "dynamics_gvp", "rec_encoder_gvp"):
+        if section in cfg:
+            cfg[section]["compute_dtype"] = dtype_name
     out = []
     for device in (dev, torch.device("cpu")):
         model = model_from_config(cfg, device=device)
@@ -411,7 +434,7 @@ def train_phase(params_path, seed, dev):
         sampler = KeypointSampler.from_params(CONFIG, npz, batch_size=64, device="cuda", seed=seed,
                                               sample_steps=STEPS)
         pocket = synthetic_complex_np(np.random.default_rng(seed + 4), 260, 20, 260, 20, 10, 10)
-        with ChainLog(cfg["dynamics"]["n_layers"]) as log:
+        with ChainLog() as log:
             mols = sampler.sample_for_arrays(pocket["rec_x"], pocket["rec_h"], pocket["rec_res_idx"],
                                              init_com=pocket["lig_x"].mean(0), n_mols=8, ligand_size=20)
         serve_launches = log.check("train export -> serve")["launches"]
@@ -433,14 +456,24 @@ def sync():
         torch.cuda.synchronize()
 
 
+def kk_layout(kk) -> str:
+    return "block" if isinstance(kk, dict) else f"nbr{int(kk[0].shape[-1])}" if isinstance(kk, tuple) else "dense"
+
+
+def launches_per_step(model, kk) -> int:
+    """Edge-kernel launches of one reverse step: n_layers for ll, as many
+    again for kk while it is dense or in blocks (EGNN with update_kp_feat);
+    none for GVP, whose messages run in plain PyTorch."""
+    if model.gvp:
+        return 0
+    dyn = model.dynamics
+    return dyn.n_layers * (1 + int(dyn.update_kp_feat and not isinstance(kk, tuple)))
+
+
 class ChainLog:
     """Counts the kernel launches a path must make: every reverse chain it
-    samples (KeypointDiffusion.sample) adds n_layers launches a step for ll
-    and as many for kk while kk is dense. Counts launches and chains from
-    zero when entered."""
-
-    def __init__(self, n_layers):
-        self.n_layers = n_layers
+    samples (KeypointDiffusion.sample) adds launches_per_step a step. Counts
+    launches and chains from zero when entered."""
 
     def __enter__(self):
         self.chains, self.real = [], KeypointDiffusion.sample
@@ -449,7 +482,7 @@ class ChainLog:
         def logged(model, cpx, kk, *a, **kw):
             steps = kw.get("sample_steps") or 0
             n = steps if 0 < steps < model.cfg.n_timesteps else model.cfg.n_timesteps
-            log.append(dict(steps=n, kk="dense" if torch.is_tensor(kk) else f"nbr{int(kk[0].shape[-1])}",
+            log.append(dict(steps=n, kk=kk_layout(kk), per_step=launches_per_step(model, kk),
                             batch=int(cpx.lig_x.shape[0]), bucket=int(cpx.lig_x.shape[1])))
             return real(model, cpx, kk, *a, **kw)
 
@@ -463,7 +496,7 @@ class ChainLog:
         KeypointDiffusion.sample = self.real
         self.launches = egnn_edge.launches
         self.steps = sum(c["steps"] for c in self.chains)
-        self.want = sum(c["steps"] * self.n_layers * (2 if c["kk"] == "dense" else 1) for c in self.chains)
+        self.want = sum(c["steps"] * c["per_step"] for c in self.chains)
         self.layouts = sorted({c["kk"] for c in self.chains})
 
     def check(self, label):
@@ -528,7 +561,7 @@ def check_molecules(label, mols, n_lig_max, need_bonds=True):
             raise RuntimeError(f"{label}: a molecule of {m.n_atoms} atoms, coordinates {m.coords.shape}")
 
 
-def serve_phase(run, cfg, pdb, sdf, seed, n_layers, tmp):
+def serve_phase(run, cfg, pdb, sdf, seed, tmp):
     """Phase 5. Returns the sampler, its record and its kernel launches by path."""
     sampler = KeypointSampler(run, batch_size=SERVE_BATCH, seed=seed, sample_steps=STEPS, device=DEVICE)
     data = process_ligand_and_pocket(str(pdb), str(sdf), cfg)
@@ -551,7 +584,7 @@ def serve_phase(run, cfg, pdb, sdf, seed, n_layers, tmp):
                 ("serve_pocket", dict(n_mols=SERVE_BATCH, ligand_size="ref")))
     for label, kw in requests:
         outs.clear()
-        with ChainLog(n_layers) as log:
+        with ChainLog() as log:
             t0 = time.perf_counter()
             if label == "serve_pocket":
                 mols = sampler.sample_for_pocket(pdb, sdf, **kw)
@@ -588,7 +621,7 @@ def serve_phase(run, cfg, pdb, sdf, seed, n_layers, tmp):
                          interface_points=int(data["interface_points"].shape[0])), paths
 
 
-def frontends_phase(run, cfg, sampler, pdb, sdf, seed, n_layers, tmp):
+def frontends_phase(run, cfg, sampler, pdb, sdf, seed, tmp):
     """Phase 7: the byop, sample, serve_http and train CLIs on the card."""
     tmp = Path(tmp)
     rows, paths = {}, {}
@@ -596,7 +629,7 @@ def frontends_phase(run, cfg, sampler, pdb, sdf, seed, n_layers, tmp):
     write_mmcif(parse_pdb(pdb), cif)
     for label, receptor in (("byop_pdb", pdb), ("byop_mmcif", cif)):
         out = tmp / label
-        with ChainLog(n_layers) as log:
+        with ChainLog() as log:
             t0 = time.perf_counter()
             mols = byop_cli.main(["--model_dir", str(run), "--receptor_file", str(receptor), "--ligand_file",
                                   str(sdf), "--out", str(out), "--n_mols", str(SERVE_BATCH), "--sample_steps",
@@ -613,7 +646,7 @@ def frontends_phase(run, cfg, sampler, pdb, sdf, seed, n_layers, tmp):
               f"atoms", flush=True)
 
     out = tmp / "sampled"
-    with ChainLog(n_layers) as log:
+    with ChainLog() as log:
         t0 = time.perf_counter()
         sample_cli.main(["--model_dir", str(run), "--out", str(out), "--dataset_size", "2", "--samples_per_pocket",
                          "32", "--max_batch_size", str(SERVE_BATCH), "--sample_steps", str(STEPS), "--max_tries", "2",
@@ -648,7 +681,7 @@ def frontends_phase(run, cfg, sampler, pdb, sdf, seed, n_layers, tmp):
                            "n_mols": 16, "ligand_size": "ref"}).encode()
         req = urllib.request.Request(f"http://127.0.0.1:{server.server_address[1]}/sample_files", data=body,
                                      headers={"Content-Type": "application/json"}, method="POST")
-        with ChainLog(n_layers) as log:
+        with ChainLog() as log:
             t0 = time.perf_counter()
             with urllib.request.urlopen(req, timeout=300) as r:
                 status, payload = r.status, json.loads(r.read())
@@ -673,7 +706,7 @@ def frontends_phase(run, cfg, sampler, pdb, sdf, seed, n_layers, tmp):
     real_analyze = ModelAnalyzer.sample_and_analyze
 
     def logged_analyze(self, *a, **kw):
-        with ChainLog(n_layers) as alog:
+        with ChainLog() as alog:
             t0 = time.perf_counter()
             m = real_analyze(self, *a, **kw)
             alog.seconds = time.perf_counter() - t0
@@ -704,8 +737,175 @@ def frontends_phase(run, cfg, sampler, pdb, sdf, seed, n_layers, tmp):
     return rows, paths
 
 
-def quality_phase(model, cfg, train_ds, test_ds, seed, n_layers):
-    """Phase 8: benchmarks/strided_quality.py's protocol on the port at K=QUALITY_K."""
+def _without_dropout(name):
+    """configs/<name>.yml with GVP dropout off (the card-against-CPU comparison draws no masks)."""
+    cfg = load_config(f"configs/{name}.yml")
+    for section in ("dynamics_gvp", "rec_encoder_gvp"):
+        if section in cfg:
+            cfg[section]["dropout"] = 0.0
+    return cfg
+
+
+def family_phase(name, seed, dev, data_cache, kernel_rows):
+    """Phase 9 for one config at full width and depth, seeded weights:
+    encode -> compact_kk -> a K=FAMILY_K chain at batch FAMILY_BATCH under
+    no_grad (launches by layout); for OWN_KK a chain on the encoder's own kk
+    with every launch held against the plain version; loss and gradients on
+    the card against the CPU (f32, dropout 0); FAMILY_TRAIN_STEPS optimizer
+    steps at batch FAMILY_BATCH with the config's dropout, remat and
+    grad_accum. Appends the kernel's first launch at each new shape to
+    `kernel_rows` (inputs, dtype). Returns the record and the launches by path."""
+    t_fam = time.perf_counter()
+    cfg = load_config(f"configs/{name}.yml")
+    pad = PaddingConfig.from_config(cfg)
+    n_rec_feat, n_lig_feat, _ = resolve_feature_sizes(cfg)
+    model = model_from_config(cfg, device=dev, seed=seed)
+    model.eval()
+    rec = dict(arch=model.cfg.architecture, encoder=model.cfg.rec_encoder_type,
+               kk_layout=model.cfg.dynamics.get("kk_layout", "dense"), n_rec=pad.n_rec, n_kp=pad.n_kp,
+               n_lig=pad.n_lig, params=sum(p.numel() for p in model.parameters()))
+    paths = {}
+    cpx = synthetic_batch(seed, batch=FAMILY_BATCH, n_rec_pad=pad.n_rec, n_lig_pad=pad.n_lig, n_rec_feat=n_rec_feat,
+                          n_lig_feat=n_lig_feat, n_kp=pad.n_kp, kp_feat_dim=model.cfg.rec_nf,
+                          kp_vec_dim=model.kp_vec_dim, n_ip_pad=pad.n_ip, min_rec=min(260, 3 * pad.n_rec // 4),
+                          min_lig=min(18, pad.n_lig - 2), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    seen = {}
+    real_wrapper = egnn_mod.egnn_edge_dense
+
+    def recording(*a, **kw):  # the first launch at each (Ns, Nd, H) of this family's paths
+        key = (int(a[0].shape[0]), int(a[0].shape[1]), int(a[1].shape[1]), int(a[0].shape[2]))
+        if key not in seen:
+            seen[key] = (tuple(x.clone() if torch.is_tensor(x) else x for x in a), kw["compute_dtype"])
+        return real_wrapper(*a, **kw)
+
+    # ---- sampling: encode -> compact_kk -> K steps
+    egnn_mod.egnn_edge_dense = recording
+    try:
+        with torch.no_grad():
+            enc, own_kk = model.encode(cpx)
+            kk = model.compact_kk(enc, own_kk)
+            model.sample(enc, kk, sample_steps=2, generator=gen)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        with ChainLog() as log, torch.no_grad():
+            t0 = time.perf_counter()
+            out = model.sample(enc, kk, sample_steps=FAMILY_K, generator=gen)
+            torch.cuda.synchronize()
+            chain_s = time.perf_counter() - t0
+    finally:
+        egnn_mod.egnn_edge_dense = real_wrapper
+    for k, shape in (("lig_x", (FAMILY_BATCH, pad.n_lig, 3)), ("lig_h", (FAMILY_BATCH, pad.n_lig, n_lig_feat))):
+        if tuple(out[k].shape) != shape or not torch.isfinite(out[k]).all():
+            raise RuntimeError(f"{name}: {k} has shape {tuple(out[k].shape)} or is not finite")
+    paths[f"family_{name}"] = log.check(f"{name} sample (kk {kk_layout(own_kk)} -> {kk_layout(kk)})")
+    rec.update(sample=dict(kk_encoder=kk_layout(own_kk), kk_sample=kk_layout(kk), chain_s=chain_s,
+                           ms_per_step=chain_s / FAMILY_K * 1e3, s_per_ligand=chain_s / FAMILY_BATCH,
+                           peak_memory_bytes=torch.cuda.max_memory_allocated(), **paths[f"family_{name}"]))
+
+    # ---- the encoder's own kk (dense 128 x 128, blocks): every launch against the plain version
+    if name in OWN_KK:
+        errs = []
+
+        def checking(*a, **kw):
+            got = recording(*a, **kw)
+            errs.append(rel_err(got, egnn_edge.egnn_edge_dense_plain(*a, **kw)))
+            return got
+
+        egnn_mod.egnn_edge_dense = checking
+        try:
+            with ChainLog() as log, torch.no_grad():
+                model.sample(enc, own_kk, sample_steps=FAMILY_OWN_KK_STEPS, generator=gen)
+        finally:
+            egnn_mod.egnn_edge_dense = real_wrapper
+        paths[f"family_{name}_own_kk"] = log.check(f"{name} own kk {kk_layout(own_kk)}")
+        worst = max(errs)
+        print(f"  {name}: {len(errs)} launches on its own kk, each against the plain version: max_rel_err "
+              f"{worst:.3e} (tolerance {TOL[torch.bfloat16]:.0e})", flush=True)
+        if not worst <= TOL[torch.bfloat16] or len(errs) != paths[f"family_{name}_own_kk"]["launches"]:
+            raise RuntimeError(f"{name}: own-kk launches differ from the plain version ({worst:.3e})")
+        rec["own_kk"] = dict(max_rel_err=worst, **paths[f"family_{name}_own_kk"])
+    del enc, own_kk, kk, out, cpx
+    kernel_rows.extend((name, key, a, cd) for key, (a, cd) in seen.items())
+
+    # ---- training data (molgen, shared by configs with the same pocket and ligand shapes)
+    dkey = (pad.n_rec, pad.n_lig, bool(cfg["dataset"].get("ca_only", False)), n_rec_feat)
+    if dkey not in data_cache:
+        data_cache[dkey] = molgen_splits_for_config(cfg, pad, n_rec_feat, FAMILY_TRAIN_STEPS * FAMILY_BATCH, seed)[0]
+    train_ds = data_cache[dkey]
+    buckets = resolve_lig_buckets(cfg, train_ds, pad.n_lig)
+
+    def loader(bs, s):
+        return PaddedLoader(train_ds, pad, bs, pad.n_kp, model.cfg.rec_nf, seed=s, drop_last=True,
+                            lig_buckets=buckets, kp_vec_dim=model.kp_vec_dim)
+
+    # ---- loss and gradients, card against CPU (f32, dropout 0), batch of 1 (the all-atom CPU pass takes seconds)
+    small = next(loader(1, seed).epoch())
+    rng = np.random.default_rng(seed + 3)
+    b, n, f = small.lig_h.shape
+    t_eps = (rng.integers(0, cfg["diffusion"]["n_timesteps"], b), rng.normal(size=(b, n, 3)).astype(np.float32),
+             rng.normal(size=(b, n, f)).astype(np.float32))
+    flat = {k: v.detach().cpu().numpy() for k, v in model.named_parameters()}
+    t0 = time.perf_counter()
+    loss_err, leaf_err, grad_rel_all, losses = card_vs_cpu(_without_dropout(name), flat, small, t_eps,
+                                                           dev, "float32")
+    worst_leaf = max(leaf_err, key=leaf_err.get)
+    print(f"  {name} card vs CPU f32 (batch 1, bucket {n}, dropout 0): loss rel err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in sorted(loss_err.items()))
+          + f" (gate {LOSS_TOL[torch.float32]:.0e}); worst of {len(leaf_err)} gradient leaves {worst_leaf} "
+          f"{leaf_err[worst_leaf]:.3e} (gate {GRAD_TOL_F32:.0e}); {time.perf_counter() - t0:.3f} s", flush=True)
+    if max(loss_err.values()) > LOSS_TOL[torch.float32] or leaf_err[worst_leaf] > GRAD_TOL_F32:
+        raise RuntimeError(f"{name} card vs CPU f32: losses {loss_err}, worst leaf {worst_leaf} "
+                           f"{leaf_err[worst_leaf]:.3e}")
+    rec["card_vs_cpu"] = dict(loss_rel_err=loss_err, grad_leaf_rel_err_max=leaf_err[worst_leaf],
+                              grad_leaf_worst=worst_leaf, grad_leaves=len(leaf_err), losses_card=losses)
+
+    # ---- optimizer steps at FAMILY_BATCH with the config's dropout, remat and grad_accum
+    tcfg = dataclasses.replace(train_config_from(cfg), batch_size=FAMILY_BATCH)
+    train_loader = loader(FAMILY_BATCH, seed)
+    batches = []
+    while len(batches) < FAMILY_TRAIN_STEPS:
+        batches.extend(train_loader.epoch())
+    state = trainer.init_train_state(model, tcfg)
+    step_fn = trainer.make_train_step(tcfg, max(len(train_ds) // FAMILY_BATCH, 1))
+    tgen = torch.Generator(device=dev).manual_seed(seed + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    egnn_edge.launches = 0
+    rows, ms = [], []
+    for batch in batches[:FAMILY_TRAIN_STEPS]:
+        batch = batch.to(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = step_fn(state, batch, generator=tgen)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        rows.append(dict(bucket=int(batch.lig_x.shape[1]), **m))
+    train_launches = egnn_edge.launches
+    peak = torch.cuda.max_memory_allocated()
+    bad = [r for r in rows if r["skipped_nonfinite"] or not all(np.isfinite(r[k]) for k in ("l2", "total"))]
+    if bad or train_launches:
+        raise RuntimeError(f"{name} training: non-finite or skipped steps {bad}; {train_launches} kernel launches")
+    med = statistics.median(ms[1:])
+    print(f"  {name} train {FAMILY_TRAIN_STEPS} steps at batch {FAMILY_BATCH} (grad_accum {tcfg.grad_accum}, "
+          f"remat {model.cfg.dynamics.get('remat', False)}, dropout {model.cfg.dynamics.get('dropout', 0)}): "
+          f"median {med:.3f} ms/step on CUDA events (steps 1-{FAMILY_TRAIN_STEPS - 1}; first {ms[0]:.3f}); peak "
+          f"memory {peak / 2**30:.3f} GiB; l2 " + ", ".join(f"{r['l2']:.4f}" for r in rows), flush=True)
+    rec["train"] = dict(ms_per_step=ms, median_ms=med, peak_memory_bytes=peak, grad_accum=tcfg.grad_accum,
+                        steps=rows, buckets=buckets)
+    rec["seconds"] = time.perf_counter() - t_fam
+    print(f"family {name}: {rec['arch']} {rec['encoder']} encoder, kk {rec['sample']['kk_encoder']} -> "
+          f"{rec['sample']['kk_sample']}, {rec['params']:,} parameters; K={FAMILY_K} chain at batch {FAMILY_BATCH} "
+          f"{chain_s:.3f} s ({rec['sample']['ms_per_step']:.3f} ms/step, {rec['sample']['launches']} launches); "
+          f"phase {rec['seconds']:.3f} s", flush=True)
+    del model, state
+    torch.cuda.empty_cache()
+    return rec, {k: v["launches"] for k, v in paths.items()}
+
+
+def quality_phase(model, cfg, train_ds, test_ds, seed, record_file="STRIDED_QUALITY.json", gates=QUALITY_GATES):
+    """benchmarks/strided_quality.py's protocol on the port at K=QUALITY_K
+    (phase 8; phase 9 for GVP), beside `record_file`'s K=QUALITY_K row."""
     pad = PaddingConfig.from_config(cfg)
     lig_elements = cfg["dataset"]["lig_elements"]
     idxs = np.random.default_rng(50).choice(len(test_ds), size=QUALITY_RECEPTORS, replace=False)
@@ -714,10 +914,10 @@ def quality_phase(model, cfg, train_ds, test_ds, seed, n_layers):
         it = pad_item(test_ds.get(int(i)), pad, n_lig_feat_out=model.cfg.atom_nf)
         if it is not None:
             items.extend([it] * QUALITY_REPLICATES)
-    cpx = to_complex(items, pad, model.cfg.rec_nf, device=DEVICE)
+    cpx = to_complex(items, pad, model.cfg.rec_nf, model.kp_vec_dim, device=DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 250)
     ligands = []
-    with ChainLog(n_layers) as log, torch.no_grad():
+    with ChainLog() as log, torch.no_grad():
         t0 = time.perf_counter()
         enc, kk = model.encode(cpx)
         kk = model.compact_kk(enc, kk)
@@ -729,18 +929,19 @@ def quality_phase(model, cfg, train_ds, test_ds, seed, n_layers):
     metrics = evaluate_samples([c for c, _ in ligands], [e for _, e in ligands],
                                train_type_counts=type_counts(train_ds), element_list=lig_elements)
     metrics_s = time.perf_counter() - t0
-    record = next(r for r in json.loads(Path("STRIDED_QUALITY.json").read_text())["rows"] if r["K"] == QUALITY_K)
-    print(f"quality K={QUALITY_K} eta=1, {len(ligands)} molecules ({len(items)} x {QUALITY_LAUNCHES} launches; "
-          f"sampling {sample_s:.3f} s, metrics {metrics_s:.3f} s); port | STRIDED_QUALITY.json K={QUALITY_K}:", flush=True)
+    record = next(r for r in json.loads(Path(record_file).read_text())["rows"] if r["K"] == QUALITY_K)
+    print(f"quality {model.cfg.architecture} K={QUALITY_K} eta=1, {len(ligands)} molecules ({len(items)} x "
+          f"{QUALITY_LAUNCHES} launches; sampling {sample_s:.3f} s, metrics {metrics_s:.3f} s); port | "
+          f"{record_file} K={QUALITY_K}:", flush=True)
     for k in RECORD_KEYS:
         ci = f" +- {record[k + '_ci95']}" if k + "_ci95" in record else ""
         print(f"  {k}: {metrics.get(k)} | {record.get(k)}{ci}", flush=True)
     path = log.check("quality")
-    failed = {k: metrics.get(k) for k, (op, lim) in QUALITY_GATES.items()
+    failed = {k: metrics.get(k) for k, (op, lim) in gates.items()
               if metrics.get(k) is None or not (metrics[k] >= lim if op == ">=" else metrics[k] <= lim)}
     if len(ligands) != QUALITY_RECEPTORS * QUALITY_REPLICATES * QUALITY_LAUNCHES or failed:
-        raise RuntimeError(f"quality: {len(ligands)} molecules; gates {QUALITY_GATES} failed by {failed}")
-    return dict(port=metrics, record={k: record.get(k) for k in RECORD_KEYS}, gates=QUALITY_GATES,
+        raise RuntimeError(f"quality: {len(ligands)} molecules; gates {gates} failed by {failed}")
+    return dict(port=metrics, record={k: record.get(k) for k in RECORD_KEYS}, gates=gates,
                 n_molecules=len(ligands), sample_s=sample_s, metrics_s=metrics_s), path
 
 
@@ -758,9 +959,10 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs a CUDA card",
               file=sys.stderr)
         sys.exit(2)
-    if not Path(args.params).is_file():
-        print(f"chip_smoke: trained weights {args.params} not found", file=sys.stderr)
-        sys.exit(2)
+    for weights_file in (args.params, GVP_PARAMS):
+        if not Path(weights_file).is_file():
+            print(f"chip_smoke: trained weights {weights_file} not found", file=sys.stderr)
+            sys.exit(2)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -782,10 +984,15 @@ def main():
     # ---- 3. kernel against its plain version at the flagship shapes
     t0 = time.perf_counter()
     rng = np.random.default_rng(args.seed)
-    h = 257
     shape_rows = []
-    for label, b, ns, nd in (("ll16", BATCH, 16, 16), ("ll32", BATCH, 32, 32), ("ll48", BATCH, 48, 48),
-                             ("kk40", BATCH, 40, 40), ("ns192_nd48", 16, 192, 48), ("ns384_nd48", 16, 384, 48)):
+    # the flagship's shapes, many sources, and the other families' (width 256 of egnn_40kp_fast, K=20 of
+    # egnn_20kp, egnn_ca's 128 x 128 kk, egnn_all_atom's block windows: 3 x 64 sources to 64 per tile, B * 6 rows)
+    for label, b, ns, nd, h in (("ll16", BATCH, 16, 16, 257), ("ll32", BATCH, 32, 32, 257),
+                                ("ll48", BATCH, 48, 48, 257), ("kk40", BATCH, 40, 40, 257),
+                                ("ns192_nd48", 16, 192, 48, 257), ("ns384_nd48", 16, 384, 48, 257),
+                                ("kk40_h256", BATCH, 40, 40, 256), ("ll32_h256", BATCH, 32, 32, 256),
+                                ("kk20", BATCH, 20, 20, 257), ("kk128", FAMILY_BATCH, 128, 128, 257),
+                                ("block192x64", FAMILY_BATCH * 6, 192, 64, 257)):
         base = random_args(rng, b, ns, nd, h, dev)
         for cd in (torch.bfloat16, torch.float32):
             shape_rows.append(measure(with_dtype(base, cd), cd, f"random_{label}", iters=20 if cd == torch.bfloat16 else 3))
@@ -916,7 +1123,7 @@ def main():
     pdb, sdf = write_synthetic_complex(np.random.default_rng(args.seed + 2), tmp, cfg["dataset"]["lig_elements"])
     print(f"serve setup: molgen splits {len(q_train)} / {len(q_test)} (seed {QUALITY_SEED}), run dir, receptor "
           f"and ligand in {time.perf_counter() - t1:.3f} s", flush=True)
-    sampler, serve_record, serve_paths = serve_phase(run, run_cfg, pdb, sdf, args.seed, n_layers, tmp)
+    sampler, serve_record, serve_paths = serve_phase(run, run_cfg, pdb, sdf, args.seed, tmp)
     if not 260 <= serve_record["pocket_atoms"] <= pad.n_rec:
         raise RuntimeError(f"synthetic receptor: pocket of {serve_record['pocket_atoms']} atoms")
     phase("serve", t0)
@@ -928,15 +1135,35 @@ def main():
 
     # ---- 7. front ends: byop (PDB, mmCIF), sample CLI, HTTP server, train CLI with the analyzer
     t0 = time.perf_counter()
-    front_record, front_paths = frontends_phase(run, run_cfg, sampler, pdb, sdf, args.seed, n_layers, tmp)
+    front_record, front_paths = frontends_phase(run, run_cfg, sampler, pdb, sdf, args.seed, tmp)
     phase("frontends", t0)
 
     # ---- 8. quality on held-out molgen pockets against STRIDED_QUALITY.json
     t0 = time.perf_counter()
-    quality_record, quality_path = quality_phase(sampler.model, run_cfg, q_train, q_test, args.seed, n_layers)
+    quality_record, quality_path = quality_phase(sampler.model, run_cfg, q_train, q_test, args.seed)
     del sampler
     tmp_root.cleanup()
     phase("quality", t0)
+
+    # ---- 9. families: every other config at full width and depth; GVP quality on the trained gvp_40kp
+    t0 = time.perf_counter()
+    family_records, family_paths, data_cache, new_inputs = {}, {}, {}, []
+    for name in FAMILIES:
+        family_records[name], launches = family_phase(name, args.seed, dev, data_cache, new_inputs)
+        family_paths.update(launches)
+    del data_cache
+    family_rows = [measure(a, cd, f"main_{name}_b{k[0]}_ns{k[1]}_nd{k[2]}_h{k[3]}")
+                   for name, k, a, cd in new_inputs]
+    del new_inputs
+    gvp_cfg = load_config("configs/gvp_40kp.yml")
+    gvp_model = model_from_config(gvp_cfg, device=dev, seed=args.seed)
+    load_params(gvp_model, read_keystr_npz(GVP_PARAMS))
+    gvp_model.eval()
+    gvp_quality, gvp_quality_path = quality_phase(gvp_model, gvp_cfg, q_train, q_test, args.seed,
+                                                  record_file="STRIDED_QUALITY_GVP.json", gates=GVP_QUALITY_GATES)
+    family_paths["quality_gvp"] = gvp_quality_path["launches"]
+    del gvp_model
+    phase("families", t0)
 
     total = time.perf_counter() - t_all
     print(f"total wall: {total:.3f} s", flush=True)
@@ -949,14 +1176,15 @@ def main():
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
         "launches_by_path": dict(sample=main_launches, **{k: v["launches"] for k, v in serve_paths.items()},
                                  **train_paths, **{k: v["launches"] for k, v in front_paths.items()},
-                                 quality=quality_path["launches"]),
-        "shapes": list(main_rows.values()) + shape_rows,
+                                 quality=quality_path["launches"], **family_paths),
+        "shapes": list(main_rows.values()) + family_rows + shape_rows,
     }]}
     record = dict(card=card, device=torch.cuda.get_device_name(0), weights=weights, slice=slice_rows,
                   mixture_s_per_ligand=mixture, chain_step_max_rel_err=chain_step_err,
                   chain_free_max_rel_diff=chain_free, chain_one_ulp_max_rel_diff=chain_ulp, serve=serve_record,
                   train=train_record, frontends=front_record, quality=quality_record,
-                  paths={**serve_paths, **front_paths, "quality": quality_path}, total_wall_s=total, **kernels)
+                  paths={**serve_paths, **front_paths, "quality": quality_path}, families=family_records,
+                  quality_gvp=gvp_quality, total_wall_s=total, **kernels)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1))

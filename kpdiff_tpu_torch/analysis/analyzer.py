@@ -61,7 +61,8 @@ class ModelAnalyzer:
         try:
             with torch.no_grad():
                 for start in range(0, len(items), cs):
-                    cpx = to_complex(items[start:start + cs], self.pad, self.model.cfg.rec_nf, device=device)
+                    cpx = to_complex(items[start:start + cs], self.pad, self.model.cfg.rec_nf, self.model.kp_vec_dim,
+                                     device=device)
                     enc, kk = self.model.encode(cpx)
                     out = self.model.sample(enc, kk, init_com=None, generator=generator)
                     n_keep = min(cs, n_items - start)

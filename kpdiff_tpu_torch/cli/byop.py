@@ -48,7 +48,11 @@ def parse_args(argv=None):
 
 def process_ligand_and_pocket(receptor_file, ligand_file, config):
     """Pocket extraction at inference (reference byop.py:99-206). The
-    receptor may be .pdb or .cif/.mmcif."""
+    receptor may be .pdb or .cif/.mmcif. A `dataset.ca_only` config (the
+    *_ca families) gets one node per pocket residue, its Cα, featurized by
+    the 20 residue one-hots and without interface points, as the processing
+    CLI's --ca_only (kpdiff_tpu/cli/process_bindingmoad.py:96-108)."""
+    from kpdiff_tpu_torch.constants import aa_to_idx, protein_letters_3to1
     from kpdiff_tpu_torch.data.mmcif import parse_structure
     from kpdiff_tpu_torch.data.pocket import get_pocket_atoms, make_element_map
     from kpdiff_tpu_torch.data.sdf import parse_sdf
@@ -70,7 +74,18 @@ def process_ligand_and_pocket(receptor_file, ligand_file, config):
         interface_distance_threshold=ds_cfg.get("interface_distance_threshold", 5),
         interface_exclusion_threshold=ds_cfg.get("interface_exclusion_threshold", 2),
     )
+    rec_atoms = rec.select(byres_mask)
     pocket_res_idx = rec.res_index[byres_mask]
+    if ds_cfg.get("ca_only", False):
+        rec_atoms = rec_atoms.select(np.array([n == "CA" for n in rec_atoms.name], dtype=bool))
+        unknown = sorted({rn for rn in rec_atoms.resname if rn not in protein_letters_3to1})
+        if unknown:
+            raise ValueError(f"ca_only pocket: unsupported residue types {unknown}")
+        aa = np.array([aa_to_idx[protein_letters_3to1[rn]] for rn in rec_atoms.resname], dtype=np.int64)
+        pocket_coords, pocket_res_idx = rec_atoms.coords, rec_atoms.res_index
+        pocket_feats = np.zeros((len(aa), len(aa_to_idx)), np.float32)
+        pocket_feats[np.arange(len(aa)), aa] = 1
+        interface_points = np.zeros((0, 3), np.float32)
     _, pocket_res_idx = np.unique(pocket_res_idx, return_inverse=True)  # compact residue indices
     return dict(
         rec_pos=pocket_coords.astype(np.float32),
@@ -79,7 +94,7 @@ def process_ligand_and_pocket(receptor_file, ligand_file, config):
         interface_points=interface_points.astype(np.float32),
         lig_pos=lig.coords.astype(np.float32),
         lig_feat=np.zeros((lig.n_atoms, len(ds_cfg["lig_elements"])), np.float32),
-        rec_atoms=rec.select(byres_mask),
+        rec_atoms=rec_atoms,
         ref_lig=lig,
     )
 

@@ -131,7 +131,7 @@ def main(argv=None):
         if len(items) < batch:
             print(f"pocket {i}: exceeds padding capacity, skipped", flush=True)
             continue
-        cpx = to_complex(items, pad_i, model.cfg.rec_nf, device=dev)
+        cpx = to_complex(items, pad_i, model.cfg.rec_nf, model.kp_vec_dim, device=dev)
         init_com = None
         if args.use_ref_lig_com:
             init_com = torch.as_tensor(np.broadcast_to(item["lig_pos"].mean(0), (batch, 3)).astype(np.float32),

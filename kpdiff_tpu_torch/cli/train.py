@@ -133,7 +133,7 @@ def main(argv=None):
     def loader(ds, seed, drop_last=True):
         return PaddedLoader(ds, pad, batch_size=batch_size, n_kp=pad.n_kp, kp_feat_dim=model.cfg.rec_nf,
                             max_fake_atom_frac=ds_cfg.get("max_fake_atom_frac", 0.0), seed=seed,
-                            drop_last=drop_last, lig_buckets=lig_buckets)
+                            drop_last=drop_last, lig_buckets=lig_buckets, kp_vec_dim=model.kp_vec_dim)
 
     train_loader = loader(train_ds, args.seed)
     test_loader = loader(test_ds, args.seed + 7, drop_last=False)

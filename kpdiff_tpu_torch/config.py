@@ -310,11 +310,19 @@ def diffusion_config_from(config: Dict[str, Any]):
     n_rec_feat, n_lig_feat, n_kp_feat = resolve_feature_sizes(config)
     graph = config.get("graph", {})
     n_keypoints = graph.get("n_keypoints", 20)
-    if architecture != "egnn":
-        raise NotImplementedError(f"architecture {architecture!r} is not ported yet (egnn only)")
-    rec_enc_cfg = dict(config.get("rec_encoder", {}))
-    rec_enc_cfg["in_n_node_feat"] = n_rec_feat
-    rec_enc_cfg["n_keypoints"] = n_keypoints
+    if architecture == "egnn":
+        dynamics_cfg = dict(config.get("dynamics", {}))
+        rec_enc_cfg = dict(config.get("rec_encoder", {}))
+        rec_enc_cfg["in_n_node_feat"] = n_rec_feat
+        rec_enc_cfg["n_keypoints"] = n_keypoints
+    else:
+        dynamics_cfg = dict(config.get("dynamics_gvp", {}))
+        rec_enc_cfg = dict(config.get("rec_encoder_gvp", {}))
+        rec_enc_cfg["in_scalar_size"] = n_rec_feat
+        rec_enc_cfg["n_keypoints"] = n_keypoints
+        if rec_encoder_type == "fixed":
+            # a fixed GVP encoder's zero kp_v takes the dynamics' vector size
+            rec_enc_cfg.setdefault("vector_size", dynamics_cfg.get("vector_size", 16))
     return DiffusionConfig(
         atom_nf=n_lig_feat,
         rec_nf=n_kp_feat,
@@ -328,7 +336,7 @@ def diffusion_config_from(config: Dict[str, Any]):
         architecture=architecture,
         rec_encoder_type=rec_encoder_type,
         graph_cutoffs=dict(graph.get("graph_cutoffs", {})),
-        dynamics=dict(config.get("dynamics", {})),
+        dynamics=dynamics_cfg,
         rec_encoder=rec_enc_cfg,
         rec_encoder_loss=dict(config.get("rec_encoder_loss", {})),
     )

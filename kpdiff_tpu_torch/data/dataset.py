@@ -157,12 +157,13 @@ class PaddedLoader:
 
     def __init__(self, dataset: ComplexDataset, pad: PaddingConfig, batch_size: int, n_kp: int,
                  kp_feat_dim: int, max_fake_atom_frac: float = 0.0, seed: int = 0, drop_last: bool = False,
-                 lig_buckets: Optional[List[int]] = None):
+                 lig_buckets: Optional[List[int]] = None, kp_vec_dim: Optional[int] = None):
         self.ds = dataset
         self.pad = pad
         self.batch_size = batch_size
         self.n_kp = n_kp
         self.kp_feat_dim = kp_feat_dim
+        self.kp_vec_dim = kp_vec_dim
         self.max_fake_atom_frac = max_fake_atom_frac
         self.rng = np.random.default_rng(seed)
         self.drop_last = drop_last
@@ -207,7 +208,8 @@ class PaddedLoader:
     def _collate(self, items: List[Dict[str, np.ndarray]]) -> PaddedComplex:
         st = {k: np.stack([it[k] for it in items]) for k in items[0]}
         return make_complex(st["rec_x"], st["rec_h"], st["rec_mask"], st["lig_x"], st["lig_h"], st["lig_mask"],
-                            n_kp=self.n_kp, kp_feat_dim=self.kp_feat_dim, rec_res_idx=st["rec_res_idx"],
+                            n_kp=self.n_kp, kp_feat_dim=self.kp_feat_dim, kp_vec_dim=self.kp_vec_dim,
+                            rec_res_idx=st["rec_res_idx"],
                             ip_x=st["ip_x"], ip_mask=st["ip_mask"])
 
 

@@ -65,9 +65,10 @@ def pad_item(
 
 
 def to_complex(items: List[Dict[str, np.ndarray]], pad: PaddingConfig, kp_feat_dim: int,
-               device="cpu") -> PaddedComplex:
-    """Stack padded items into a PaddedComplex on `device`."""
+               kp_vec_dim: Optional[int] = None, device="cpu") -> PaddedComplex:
+    """Stack padded items into a PaddedComplex on `device` (a zero kp_v of
+    kp_vec_dim channels for GVP models)."""
     st = {k: np.stack([it[k] for it in items]) for k in items[0]}
     return make_complex(st["rec_x"], st["rec_h"], st["rec_mask"], st["lig_x"], st["lig_h"], st["lig_mask"],
-                        n_kp=pad.n_kp, kp_feat_dim=kp_feat_dim, rec_res_idx=st["rec_res_idx"],
+                        n_kp=pad.n_kp, kp_feat_dim=kp_feat_dim, kp_vec_dim=kp_vec_dim, rec_res_idx=st["rec_res_idx"],
                         ip_x=st["ip_x"], ip_mask=st["ip_mask"], device=device)

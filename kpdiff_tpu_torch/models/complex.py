@@ -26,6 +26,7 @@ class PaddedComplex:
     kp_x: torch.Tensor  # (B, K, 3)
     kp_h: torch.Tensor  # (B, K, Dk)
     kp_mask: torch.Tensor  # (B, K) bool
+    kp_v: Optional[torch.Tensor] = None  # (B, K, V, 3) for GVP models
     ip_x: Optional[torch.Tensor] = None  # (B, P, 3)
     ip_mask: Optional[torch.Tensor] = None  # (B, P) bool
 
@@ -47,8 +48,10 @@ class PaddedComplex:
 
 
 def make_complex(rec_x, rec_h, rec_mask, lig_x, lig_h, lig_mask, n_kp: int, kp_feat_dim: int,
-                 rec_res_idx=None, ip_x=None, ip_mask=None, device="cpu") -> PaddedComplex:
-    """Numpy (or tensor) arrays -> PaddedComplex on `device`, keypoints empty."""
+                 kp_vec_dim: Optional[int] = None, rec_res_idx=None, ip_x=None, ip_mask=None,
+                 device="cpu") -> PaddedComplex:
+    """Numpy (or tensor) arrays -> PaddedComplex on `device`, keypoints empty
+    (with a zero kp_v of kp_vec_dim channels for GVP models)."""
 
     def t(a, dtype):
         return torch.as_tensor(np.asarray(a), device=device).to(dtype)
@@ -64,6 +67,7 @@ def make_complex(rec_x, rec_h, rec_mask, lig_x, lig_h, lig_mask, n_kp: int, kp_f
         kp_x=torch.zeros((b, n_kp, 3), dtype=f32, device=device),
         kp_h=torch.zeros((b, n_kp, kp_feat_dim), dtype=f32, device=device),
         kp_mask=torch.zeros((b, n_kp), dtype=torch.bool, device=device),
+        kp_v=None if kp_vec_dim is None else torch.zeros((b, n_kp, kp_vec_dim, 3), dtype=f32, device=device),
         ip_x=None if ip_x is None else t(ip_x, f32),
         ip_mask=None if ip_mask is None else t(ip_mask, torch.bool),
     )
@@ -137,6 +141,7 @@ def synthetic_batch(
     n_lig_feat: int = 10,
     n_kp: int = 8,
     kp_feat_dim: int = 32,
+    kp_vec_dim: Optional[int] = None,
     n_ip_pad: int = 16,
     min_rec: int = 24,
     min_lig: int = 8,
@@ -156,6 +161,6 @@ def synthetic_batch(
     return make_complex(
         stacked["rec_x"], stacked["rec_h"], stacked["rec_mask"],
         stacked["lig_x"], stacked["lig_h"], stacked["lig_mask"],
-        n_kp=n_kp, kp_feat_dim=kp_feat_dim, rec_res_idx=stacked["rec_res_idx"],
+        n_kp=n_kp, kp_feat_dim=kp_feat_dim, kp_vec_dim=kp_vec_dim, rec_res_idx=stacked["rec_res_idx"],
         ip_x=stacked.get("ip_x"), ip_mask=stacked.get("ip_mask"), device=device,
     )

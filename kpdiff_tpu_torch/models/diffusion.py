@@ -14,6 +14,15 @@ parameters, as the JAX package trains through XLA; under `torch.no_grad()`
 the CUDA edge kernel, as the JAX package's sampler does with
 `dynamics.use_pallas_sampling`. Callers that sample run encode, compact_kk
 and sample under `torch.no_grad()`.
+
+Every model family of `configs/` builds here: the EGNN or GVP dynamics
+(`architecture`), a learned encoder or the fixed one (`rec_encoder_type`:
+the keypoints are the pocket atoms and kk is the rr radius graph, so the
+fixed families read graph_cutoffs['rr'] wherever the learned ones read
+['kk']), and kk dense, as a neighbor list or in the banded block layout
+(`dynamics.kk_layout`). GVP models carry keypoint vectors (`kp_v`) from the
+encoder to the dynamics and apply their configured dropout in the training
+loss, with masks drawn from the loss's torch.Generator.
 """
 from __future__ import annotations
 
@@ -29,9 +38,12 @@ from kpdiff_tpu_torch.losses.hinge import masked_hinge_loss
 from kpdiff_tpu_torch.losses.ot import ot_loss
 from kpdiff_tpu_torch.models.complex import PaddedComplex
 from kpdiff_tpu_torch.models.dynamics_egnn import EGNNDynamics
+from kpdiff_tpu_torch.models.dynamics_gvp import GVPDynamics
+from kpdiff_tpu_torch.models.encoder_fixed import fixed_encode, fixed_kk_edges
 from kpdiff_tpu_torch.models.nn import compute_dtype
 from kpdiff_tpu_torch.ops.geometry import masked_com
 from kpdiff_tpu_torch.ops.neighbors import dense_radius_adjacency, radius_neighbor_list
+from kpdiff_tpu_torch.ops.spatial import block_radius_adjacency, choose_tile
 from kpdiff_tpu_torch.ops.schedule import (
     NoiseSchedule,
     alpha_from_gamma,
@@ -60,9 +72,16 @@ class DiffusionConfig:
     rec_encoder_loss: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
-def dynamics_from_config(cfg: DiffusionConfig, gen: torch.Generator) -> EGNNDynamics:
-    """EGNNDynamics with the options kpdiff_tpu's KeypointDiffusion reads."""
+def dynamics_from_config(cfg: DiffusionConfig, gen: torch.Generator):
+    """EGNNDynamics or GVPDynamics with the options kpdiff_tpu's KeypointDiffusion reads."""
     dyn = dict(cfg.dynamics)
+    if cfg.architecture == "gvp":
+        return GVPDynamics(
+            n_lig_scalars=cfg.atom_nf, n_kp_scalars=cfg.rec_nf, gen=gen,
+            ll_cutoff=cfg.graph_cutoffs.get("ll", 9.0), kl_cutoff=cfg.graph_cutoffs.get("kl", 8.0),
+            **{k: v for k, v in dyn.items() if k not in ("no_cg", "n_keypoints")})
+    if cfg.architecture != "egnn":
+        raise ValueError(cfg.architecture)
     return EGNNDynamics(
         atom_nf=cfg.atom_nf, rec_nf=cfg.rec_nf, gen=gen,
         n_layers=dyn.get("n_layers", 6), hidden_nf=dyn.get("hidden_nf", 256),
@@ -76,62 +95,108 @@ def dynamics_from_config(cfg: DiffusionConfig, gen: torch.Generator) -> EGNNDyna
 
 
 class KeypointDiffusion(nn.Module):
-    """Learned-encoder EGNN keypoint diffusion: encode, compact_kk, sample.
+    """Keypoint diffusion: encode, compact_kk, sample, loss.
 
     Parameters are named as the JAX package's param tree
-    (`encoder.*`, `dynamics.*`), so `utils/params_io.py` loads its archives."""
+    (`encoder.*`, `dynamics.*`; a fixed encoder has none), so
+    `utils/params_io.py` loads its archives."""
 
     def __init__(self, cfg: DiffusionConfig, seed: int = 0):
         super().__init__()
-        if cfg.architecture != "egnn":
-            raise NotImplementedError(f"architecture {cfg.architecture!r} is not ported yet")
-        if cfg.rec_encoder_type != "learned":
-            raise NotImplementedError(f"rec_encoder_type {cfg.rec_encoder_type!r} is not ported yet")
         self.cfg = cfg
         self.schedule = NoiseSchedule.create(cfg.noise_schedule, cfg.n_timesteps, cfg.precision)
         gen = torch.Generator().manual_seed(seed)
-        from kpdiff_tpu_torch.models.encoder_egnn import EGNNReceptorEncoder
-
+        self.fixed = cfg.rec_encoder_type == "fixed"
+        self.gvp = cfg.architecture == "gvp"
         enc = {k: v for k, v in cfg.rec_encoder.items() if k != "no_cg"}
-        self.encoder = EGNNReceptorEncoder(gen, graph_cutoffs=cfg.graph_cutoffs, **enc)
+        if cfg.rec_encoder_type == "learned" and not self.gvp:
+            from kpdiff_tpu_torch.models.encoder_egnn import EGNNReceptorEncoder
+
+            self.encoder = EGNNReceptorEncoder(gen, graph_cutoffs=cfg.graph_cutoffs, **enc)
+        elif cfg.rec_encoder_type == "learned":
+            from kpdiff_tpu_torch.models.encoder_gvp import GVPReceptorEncoder
+
+            self.encoder = GVPReceptorEncoder(gen, graph_cutoffs=cfg.graph_cutoffs, **enc)
+        elif self.fixed:
+            self.encoder = None
+        else:
+            raise ValueError(cfg.rec_encoder_type)
         self.dynamics = dynamics_from_config(cfg, gen)
         self.cd = compute_dtype(cfg.dynamics.get("compute_dtype", "float32"))
         self._precast = None
         self.rec_loss_kwargs = dict(cfg.rec_encoder_loss)
+        if self.fixed:
+            self.rec_loss_kwargs["loss_type"] = "none"
         self.rec_loss_type = self.rec_loss_kwargs.get("loss_type", "none")
         self.rec_loss_use_ip = self.rec_loss_kwargs.get("use_interface_points", False)
 
+    @property
+    def kp_vec_dim(self):
+        """Keypoint vector channels of a GVP model (the collation's kp_v); None for EGNN."""
+        return self.cfg.rec_encoder.get("vector_size", 16) if self.gvp else None
+
+    def _kk_cutoff(self) -> float:
+        return self.cfg.graph_cutoffs["rr" if self.fixed else "kk"]
+
     # ---------------------------------------------------------------- encode
 
-    def encode(self, cpx: PaddedComplex):
+    def encode(self, cpx: PaddedComplex, dropout: bool = False, generator: Optional[torch.Generator] = None):
         """Encoder pass -> (complex with kp_* filled, kk edge structure).
-        Differentiable; sampling callers run it under torch.no_grad()."""
-        cpx = self.encoder(cpx)
+        Differentiable; sampling callers run it under torch.no_grad().
+        dropout=True (the training loss) applies a learned GVP encoder's
+        dropout with masks drawn from `generator`."""
+        if self.fixed:
+            cpx = fixed_encode(cpx, n_vec_feats=self.cfg.rec_encoder.get("vector_size") if self.gvp else None,
+                               sort_spatial=self.cfg.dynamics.get("kk_layout", "dense") == "block")
+        elif self.gvp:
+            cpx = self.encoder(cpx, dropout=dropout and self.cfg.rec_encoder.get("dropout", 0) > 0,
+                               generator=generator)
+        else:
+            cpx = self.encoder(cpx)
         return cpx, self._kk_edges(cpx)
 
     def _kk_edges(self, cpx: PaddedComplex):
+        """kk edges within the kk cutoff (rr for a fixed encoder): a dense
+        (B, K, K) adjacency, a neighbor list of at most 100 (layout 'nbr'),
+        or the banded block layout {'block': (B, nt, 3 * tile, tile)} over
+        the spatially sorted keypoints (layout 'block')."""
         layout = self.cfg.dynamics.get("kk_layout", "dense")
-        r = self.cfg.graph_cutoffs["kk"]
+        r = self._kk_cutoff()
+        if layout == "block":
+            tile = choose_tile(cpx.kp_x.shape[1], int(self.cfg.dynamics.get("kk_block_size", 64)))
+            return {"block": block_radius_adjacency(cpx.kp_x, cpx.kp_mask, r, tile)}
+        if self.fixed:
+            return fixed_kk_edges(cpx, r, layout=layout)
         if layout == "dense":
             return dense_radius_adjacency(cpx.kp_x, cpx.kp_mask, cpx.kp_x, cpx.kp_mask, r, exclude_self=True)
-        if layout == "nbr":
-            return radius_neighbor_list(cpx.kp_x, cpx.kp_mask, cpx.kp_x, cpx.kp_mask, r, 100, exclude_self=True)
-        raise NotImplementedError(f"kk_layout {layout!r} is not ported yet")
+        return radius_neighbor_list(cpx.kp_x, cpx.kp_mask, cpx.kp_x, cpx.kp_mask, r, 100, exclude_self=True)
 
     @torch.no_grad()
     def compact_kk(self, cpx: PaddedComplex, kk, align: int = 8, min_cap: int = 0):
         """Exact capped neighbor-list kk for sampling: the same edge set in a
         smaller layout when the max degree rounded up to `align` is below K;
-        the dense adjacency unchanged otherwise. `min_cap` pins a grow-only cap."""
+        a dense adjacency unchanged otherwise. A block layout always becomes
+        the exact radius graph's neighbor list (the block layout only covers
+        the edges within its windows). `min_cap` pins a grow-only cap."""
         if isinstance(kk, tuple):
             return kk
-        K = kk.shape[-1]
-        deg = int(torch.max(torch.sum(kk, dim=-1)).item())
+        r = self._kk_cutoff()
+        is_block = isinstance(kk, dict)
+        adj = (dense_radius_adjacency(cpx.kp_x, cpx.kp_mask, cpx.kp_x, cpx.kp_mask, r, exclude_self=True)
+               if is_block else kk)
+        K = adj.shape[-1]
+        deg = int(torch.max(torch.sum(adj, dim=-1)).item())
         cap = min(K, max(((deg + align - 1) // align) * align, align, min_cap))
-        if cap >= K:
+        if cap >= K and not is_block:
             return kk
-        return radius_neighbor_list(cpx.kp_x, cpx.kp_mask, cpx.kp_x, cpx.kp_mask,
-                                    self.cfg.graph_cutoffs["kk"], cap, exclude_self=True)
+        return radius_neighbor_list(cpx.kp_x, cpx.kp_mask, cpx.kp_x, cpx.kp_mask, r, cap, exclude_self=True)
+
+    def _apply_dynamics(self, dyn, lig_x, lig_h, lig_mask, kp_x, kp_h, kp_mask, t, kk, kp_v=None,
+                        dropout: bool = False, generator: Optional[torch.Generator] = None):
+        if self.gvp:
+            return dyn(lig_x, lig_h, lig_mask, kp_x, kp_h, kp_mask, t, kk, kp_v, dropout=dropout,
+                       generator=generator)
+        return dyn(lig_x, lig_h, lig_mask, kp_x, kp_h, kp_mask, t, kk)
 
     # ------------------------------------------------------------------ loss
 
@@ -144,14 +209,16 @@ class KeypointDiffusion(nn.Module):
         `t_eps_override` = (t_int (B,), eps_x (B,N,3), eps_h (B,N,F)) replaces
         the draws of the timestep and the noise (the seam the tests use);
         otherwise they come from `generator` (a torch.Generator on the
-        complex's device)."""
+        complex's device). GVP models with dropout in their config draw its
+        masks from `generator` too, as the JAX loss samples dropout on every
+        call (None: torch's default generator of the device)."""
         cfg = self.cfg
         b = cpx.batch_size
         dev = cpx.device
         f32 = torch.float32
 
         cpx = cpx.replace(lig_h=cpx.lig_h / cfg.lig_feat_norm_constant)
-        cpx, kk = self.encode(cpx)
+        cpx, kk = self.encode(cpx, dropout=True, generator=generator)
         losses: Dict[str, torch.Tensor] = {"rec_encoder": self._rec_encoder_loss(cpx)}
 
         lm = cpx.lig_mask[..., None].to(cpx.lig_x.dtype)
@@ -183,7 +250,10 @@ class KeypointDiffusion(nn.Module):
         z_x = (z_x - com2[:, None]) * lm
         kp_x = (kp_x - com2[:, None]) * km
 
-        eps_h_pred, eps_x_pred = self.dynamics(z_x, z_h, cpx.lig_mask, kp_x, cpx.kp_h, cpx.kp_mask, t, kk)
+        drop = self.gvp and self.cfg.dynamics.get("dropout", 0) > 0
+        eps_h_pred, eps_x_pred = self._apply_dynamics(self.dynamics, z_x, z_h, cpx.lig_mask, kp_x, cpx.kp_h,
+                                                      cpx.kp_mask, t, kk, cpx.kp_v, dropout=drop,
+                                                      generator=generator)
 
         # torch.where (selection), not mask multiplication: repeat-padded batch
         # rows have empty masks, the dynamics may give NaN there (0/0), and
@@ -228,11 +298,12 @@ class KeypointDiffusion(nn.Module):
 
     # ---------------------------------------------------------------- sample
 
-    def _sampling_dynamics(self) -> EGNNDynamics:
-        """The dynamics with pair-MLP weights cast to the compute dtype once
-        (kpdiff_tpu's precast_pair_params): edge modules and node MLPs; the
-        LayerNorms stay f32. Every use site casts to that dtype anyway."""
-        if self.cd == torch.float32:
+    def _sampling_dynamics(self):
+        """The EGNN dynamics with pair-MLP weights cast to the compute dtype
+        once (kpdiff_tpu's precast_pair_params): edge modules and node MLPs;
+        the LayerNorms stay f32. Every use site casts to that dtype anyway.
+        GVP dynamics sample as they are, as in the JAX package."""
+        if self.cd == torch.float32 or self.gvp:
             return self.dynamics
         key = tuple((p.data_ptr(), p._version) for p in self.dynamics.parameters())
         if self._precast is None or self._precast[0] != key:
@@ -309,7 +380,8 @@ class KeypointDiffusion(nn.Module):
             sigma_s = sigma_from_gamma(gamma_s)
             sigma_t = sigma_from_gamma(gamma_t)
 
-            eps_h, eps_x = dyn(lig_x, lig_h, cpx.lig_mask, kp_x, cpx.kp_h, cpx.kp_mask, t_arr, kk_edges)
+            eps_h, eps_x = self._apply_dynamics(dyn, lig_x, lig_h, cpx.lig_mask, kp_x, cpx.kp_h, cpx.kp_mask, t_arr,
+                                                kk_edges, cpx.kp_v)
 
             if eta == 1.0:
                 # reference ancestral step, kept verbatim

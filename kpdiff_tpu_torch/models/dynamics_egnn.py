@@ -2,13 +2,21 @@
 
 Ligand-ligand edges are a dense radius grid and keypoint-ligand edges a kNN
 pair list, both rebuilt from current positions on every call; the kk edge
-structure comes in from the encoder, dense (B, K, K) or a neighbor list
-(idx, valid). The timestep is appended as a feature channel, so the working
-width is hidden_nf + 1. Every dense edge type (ll, and kk while dense) goes
-through the CUDA edge kernel, as the JAX package's sampler does with
-`dynamics.use_pallas_sampling`; while autograd records they take the
-kernel's plain version. `remat` recomputes each conv layer in the backward
-pass (torch.utils.checkpoint), storing only the layer boundaries.
+structure comes in from the encoder, dense (B, K, K), a neighbor list
+(idx, valid) or blocks (below). The timestep is appended as a feature channel, so the working
+width is hidden_nf + 1. The kk structure may also be the banded block
+layout {'block': adj (B, nt, 3 * tile, tile)} over spatially sorted
+keypoints (kk_layout 'block', the all-atom configs): each tile of `tile`
+destinations against the 3 * tile sources of its window, reshaped to a
+dense (B * nt, 3 * tile, tile) grid.
+
+Every dense edge grid (ll, kk while dense, and the block windows) goes
+through the CUDA edge kernel under no_grad, as the JAX package's sampler
+does with `dynamics.use_pallas_sampling` for ll and dense kk; the JAX
+package's block branch never takes its Pallas kernel, the port's does.
+While autograd records they take the kernel's plain version. `remat`
+recomputes each conv layer in the backward pass (torch.utils.checkpoint),
+storing only the layer boundaries.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from kpdiff_tpu_torch.models.egnn import EGNNEdgeDense, EGNNEdgeKNNPairs, EGNNEdgeNbrList, NodeUpdate
 from kpdiff_tpu_torch.models.nn import MLP
 from kpdiff_tpu_torch.ops.neighbors import dense_radius_adjacency, knn_indices
+from kpdiff_tpu_torch.ops.spatial import block_windows
 
 
 class EGNNConvLayer(nn.Module):
@@ -47,6 +56,17 @@ class EGNNConvLayer(nn.Module):
         if update_kp_feat:
             self.update_kp = NodeUpdate(h, h, h, gen, norm=norm, dtype=dtype)
 
+    def _block_kk(self, h, x, adj):
+        """kk over the banded block layout: windows of 3 * tile sources to
+        tiles of `tile` destinations as one dense (B * nt, 3 * tile, tile) grid."""
+        b, nt, w, tile = adj.shape
+        f = h.shape[-1]
+        hw = block_windows(h, tile).reshape(b * nt, w, f)
+        xw = block_windows(x, tile).reshape(b * nt, w, 3)
+        dh, dx = self.edge_kk(hw, h.reshape(b * nt, tile, f), xw, x.reshape(b * nt, tile, 3),
+                              adj.reshape(b * nt, w, tile))
+        return dh.reshape(b, nt * tile, f), dx.reshape(b, nt * tile, 3)
+
     def forward(self, h, x, edges, z, masks):
         agg_h = {"lig": 0.0, "kp": 0.0}
         agg_x = {"lig": 0.0, "kp": 0.0}
@@ -61,7 +81,9 @@ class EGNNConvLayer(nn.Module):
         if self.update_kp_feat:
             add("kp", self.edge_lk(h["kp"], h["lig"], x["kp"], x["lig"], idx, valid))
             kk = edges["kk"]
-            if isinstance(kk, tuple):
+            if isinstance(kk, dict):
+                add("kp", self._block_kk(h["kp"], x["kp"], kk["block"]))
+            elif isinstance(kk, tuple):
                 idx, valid = kk
                 add("kp", self.kk_nbr(h["kp"], h["kp"], x["kp"], x["kp"], idx, valid))
             else:
@@ -141,7 +163,10 @@ class EGNNDynamics(nn.Module):
             if self.update_kp_feat:
                 n_kp = torch.clamp(torch.sum(kp_mask, dim=1), min=1)
                 kk = edges["kk"]
-                e_kk = torch.sum(kk[1] if isinstance(kk, tuple) else kk, dim=(1, 2))
+                if isinstance(kk, dict):
+                    e_kk = torch.sum(kk["block"], dim=(1, 2, 3))
+                else:
+                    e_kk = torch.sum(kk[1] if isinstance(kk, tuple) else kk, dim=(1, 2))
                 z["kp"] = ((e_kl + e_kk) / n_kp + 1.0)[:, None, None]
             else:
                 z["kp"] = 1.0

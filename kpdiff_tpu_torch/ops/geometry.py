@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["masked_mean", "masked_com", "norm_no_nan"]
+__all__ = ["masked_mean", "masked_com", "norm_no_nan", "rbf_embed"]
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor, dim: int, keepdim: bool = False,
@@ -29,3 +29,11 @@ def norm_no_nan(x: torch.Tensor, dim: int = -1, keepdim: bool = False, eps: floa
     """L2 norm with the squared norm clamped above eps before the sqrt."""
     out = torch.clamp(torch.sum(torch.square(x), dim=dim, keepdim=keepdim), min=eps)
     return torch.sqrt(out) if sqrt else out
+
+
+def rbf_embed(d: torch.Tensor, d_min: float = 0.0, d_max: float = 20.0, d_count: int = 16) -> torch.Tensor:
+    """Gaussian radial-basis embedding of distances along a new last axis:
+    centres linspace(d_min, d_max, d_count), width (d_max - d_min) / d_count."""
+    mu = torch.linspace(d_min, d_max, d_count, dtype=d.dtype, device=d.device)
+    sigma = (d_max - d_min) / d_count
+    return torch.exp(-torch.square((d[..., None] - mu) / sigma))

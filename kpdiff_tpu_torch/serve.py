@@ -222,7 +222,7 @@ class KeypointSampler:
                 if padded is None:
                     raise ValueError(f"pocket ({n_rec} atoms) exceeds padding capacity {self.pad.n_rec}")
                 items.append(padded)
-            cpx = to_complex(items, pad_b, self.model.cfg.rec_nf, device=self.device)
+            cpx = to_complex(items, pad_b, self.model.cfg.rec_nf, self.model.kp_vec_dim, device=self.device)
             com = None
             if init_com is not None:
                 com = torch.as_tensor(np.broadcast_to(np.asarray(init_com, np.float32), (bs, 3)).copy(),

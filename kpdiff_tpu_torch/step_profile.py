@@ -1,20 +1,27 @@
 """Where the port's reverse-diffusion and training steps spend their time on the card.
 
-    python3 -m kpdiff_tpu_torch.step_profile [--buckets 16 32 48] [--params NPZ] [--out FILE]
+    python3 -m kpdiff_tpu_torch.step_profile [--config YML] [--buckets 16 32 48] [--batch 128] [--params NPZ]
+                                             [--own_kk] [--out FILE]
     python3 -m kpdiff_tpu_torch.step_profile --train [--params NPZ] [--out FILE]
 
-Builds configs/egnn_40kp.yml at full width and depth (seeded random weights
-unless --params names a keystr npz), encodes a synthetic batch of 128
-pockets per ligand bucket, and runs 10 strided sampling steps under
-torch.profiler. Prints, per bucket, the wall time per step, the device time
-per step summed over kernels, their ratio (the device's busy share) and the
-kernels that take the most device time. Then, for each shape of the edge
-kernel on that bucket's path (ll and kk), one launch of the kernel's
-profiling build (-DEGNN_EDGE_PHASE_CLOCKS) on the inputs the path gave it:
-the share of the warps' SM clocks spent in each in-kernel phase. --out also
-writes the tables to a file.
+Builds --config (default configs/egnn_40kp.yml; any family of configs/) at
+full width and depth (seeded random weights unless --params names a keystr
+npz), encodes a synthetic batch of pockets per ligand bucket, compacts kk as
+the samplers do (--own_kk keeps the encoder's dense or block kk), and runs
+10 strided sampling steps under torch.profiler.
+Prints, per bucket, the wall time per step, the device time per step summed
+over kernels, their ratio (the device's busy share) and the kernels that
+take the most device time. For an EGNN config, then, for each shape of the
+edge kernel on that bucket's path, one launch of the kernel's profiling
+build (-DEGNN_EDGE_PHASE_CLOCKS) on the inputs the path gave it: the share
+of the warps' SM clocks spent in each in-kernel phase. Then one step's
+calls of the edge modules (EGNN: the dense edges, the kNN pairs, the kk
+neighbor list; GVP: the edge messages by layout) replayed on their own
+inputs under torch.profiler, each module's device time beside the step's:
+the share a hand-written kernel for it could act on. --out also writes the
+tables to a file.
 
---train profiles flagship training instead: molgen's 256-complex split at
+--train profiles training of --config instead (the flagship by default): molgen's 256-complex split at
 full padding, batch 64, the port's train step; 3 warm-up steps, then 6
 steps under torch.profiler (wall and device ms per step, busy share, top
 kernels), then the dense edge's share: every EGNNEdgeDense call of one step
@@ -32,6 +39,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import kpdiff_tpu_torch.models.egnn as egnn_mod
+from kpdiff_tpu_torch.models.gvp import GVPEdgeMessages
 from kpdiff_tpu_torch.config import PaddingConfig, load_config, model_from_config, resolve_feature_sizes
 from kpdiff_tpu_torch.models.complex import synthetic_batch
 from kpdiff_tpu_torch.ops.cuda import egnn_edge
@@ -74,7 +82,7 @@ def train_profile(args):
     from kpdiff_tpu_torch.data.molgen import molgen_splits_for_config
     from kpdiff_tpu_torch.training import trainer
 
-    cfg = load_config(CONFIG)
+    cfg = load_config(args.config)
     cfg["training"]["sample_interval"] = 0
     model = model_from_config(cfg, device="cuda")
     if args.params:
@@ -85,7 +93,7 @@ def train_profile(args):
     buckets = resolve_lig_buckets(cfg, train_ds, pad.n_lig)
     tcfg = train_config_from(cfg)
     loader = PaddedLoader(train_ds, pad, tcfg.batch_size, pad.n_kp, model.cfg.rec_nf, seed=0, drop_last=True,
-                          lig_buckets=buckets)
+                          lig_buckets=buckets, kp_vec_dim=model.kp_vec_dim)
     batches = [b.to(dev) for _ in range(3) for b in loader.epoch()]  # 9 batches, buckets 24 and 32
     state = trainer.init_train_state(model, tcfg)
     step_fn = trainer.make_train_step(tcfg, len(train_ds) // tcfg.batch_size)
@@ -93,7 +101,7 @@ def train_profile(args):
     for b in batches[:3]:
         step_fn(state, b, generator=gen)
     torch.cuda.synchronize()
-    report = [f"{torch.cuda.get_device_name(0)}; {CONFIG} training; weights {args.params or 'random seed 0'}; "
+    report = [f"{torch.cuda.get_device_name(0)}; {args.config} training; weights {args.params or 'random seed 0'}; "
               f"batch {tcfg.batch_size}; buckets of the profiled steps {[int(b.lig_x.shape[1]) for b in batches[3:]]}"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -153,38 +161,99 @@ def train_profile(args):
         Path(args.out).write_text("\n".join(report) + "\n")
 
 
+# the modules whose calls a reverse step replays, by architecture: (label, class, method)
+EGNN_MODULES = (("ll/kk dense edges (the kernel)", egnn_mod.EGNNEdgeDense, "forward"),
+                ("kl/lk kNN pairs", egnn_mod.EGNNEdgeKNNPairs, "forward"),
+                ("kk neighbor list", egnn_mod.EGNNEdgeNbrList, "forward"))
+GVP_MODULES = (("GVP messages, dense grids (ll, kk)", GVPEdgeMessages, "dense"),
+               ("GVP messages, kNN pairs (kl, lk)", GVPEdgeMessages, "pairs"),
+               ("GVP messages, neighbor lists (kk)", GVPEdgeMessages, "nbr"))
+
+
+def _device_ms(fn) -> float:
+    """Device ms of the kernels `fn` launches (torch.profiler kernel rows)."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(_device_us(e) for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) * 1e-3
+
+
+def module_device_ms(model, enc, kk, gen, modules):
+    """One reverse step's calls of each module method in `modules`, captured
+    and replayed on their own inputs under torch.profiler: {label: (calls,
+    device ms)}. Device time, not wall: the calls are host-paced."""
+    calls = {label: [] for label, _, _ in modules}
+    originals = [(cls, name, getattr(cls, name)) for _, cls, name in modules]
+
+    def capture(label, fn):
+        def f(mod, *a, **kw):
+            calls[label].append((mod, a, kw))
+            return fn(mod, *a, **kw)
+        return f
+
+    for (label, cls, name), (_, _, fn) in zip(modules, originals):
+        setattr(cls, name, capture(label, fn))
+    try:
+        model.sample(enc, kk, sample_steps=1, generator=gen)
+    finally:
+        for cls, name, fn in originals:
+            setattr(cls, name, fn)
+    out = {}
+    with torch.no_grad():
+        for (label, _, _), (_, _, fn) in zip(modules, originals):
+            def replay():
+                for mod, a, kw in calls[label]:
+                    fn(mod, *a, **kw)
+            replay()  # warm-up
+            out[label] = (len(calls[label]), _device_ms(replay) if calls[label] else 0.0)
+    return out
+
+
+def _edge_key(a, n_lig):
+    """ll or kk, with the kernel's (Ns x Nd) shape."""
+    ns, nd = a[0].shape[1], a[1].shape[1]
+    return f"{'ll' if ns == nd == n_lig else 'kk'}{ns}x{nd}"
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--config", default=CONFIG, help=f"model config (default {CONFIG})")
     ap.add_argument("--params", default=None)
     ap.add_argument("--buckets", type=int, nargs="+", default=[16, 32, 48])
+    ap.add_argument("--batch", type=int, default=BATCH)
+    ap.add_argument("--own_kk", action="store_true",
+                    help="sample on the encoder's own kk (dense or blocks) instead of compact_kk's neighbor list")
     ap.add_argument("--train", action="store_true", help="profile flagship training steps instead of sampling")
     ap.add_argument("--out", default=None, help="also write the report to this path")
     args = ap.parse_args()
     if args.train:
         return train_profile(args)
 
-    cfg = load_config(CONFIG)
+    cfg = load_config(args.config)
     model = model_from_config(cfg, device="cuda")
     if args.params:
         load_params(model, read_keystr_npz(args.params))
     model.eval()
     pad = PaddingConfig.from_config(cfg)
     dev = next(model.parameters()).device
-    report = [f"{torch.cuda.get_device_name(0)}; {CONFIG}; weights "
-              f"{args.params or 'random seed 0'}; batch {BATCH}; {STEPS} steps"]
+    n_rec_feat, n_lig_feat, _ = resolve_feature_sizes(cfg)
+    report = [f"{torch.cuda.get_device_name(0)}; {args.config}; weights "
+              f"{args.params or 'random seed 0'}; batch {args.batch}; {STEPS} steps"]
     for n_lig in args.buckets:
-        cpx = synthetic_batch(0, batch=BATCH, n_rec_pad=pad.n_rec, n_lig_pad=n_lig, n_rec_feat=10,
-                              n_lig_feat=10, n_kp=pad.n_kp, kp_feat_dim=model.cfg.rec_nf, n_ip_pad=pad.n_ip,
-                              min_rec=260, min_lig=min(18, n_lig - 2), device=dev)
+        cpx = synthetic_batch(0, batch=args.batch, n_rec_pad=pad.n_rec, n_lig_pad=n_lig, n_rec_feat=n_rec_feat,
+                              n_lig_feat=n_lig_feat, n_kp=pad.n_kp, kp_feat_dim=model.cfg.rec_nf,
+                              kp_vec_dim=model.kp_vec_dim, n_ip_pad=pad.n_ip, min_rec=min(260, 3 * pad.n_rec // 4),
+                              min_lig=min(18, n_lig - 2), device=dev)
         with torch.no_grad():
             enc, kk = model.encode(cpx)
-            kk = model.compact_kk(enc, kk)
+            if not args.own_kk:
+                kk = model.compact_kk(enc, kk)
         gen = torch.Generator(device=dev).manual_seed(0)
         captured = {}  # the edge kernel's inputs, first launch at each shape
 
         def recording(*a, **kw):
-            key = ("kk" if a[0].shape[1] == pad.n_kp else "ll") + str(a[0].shape[1])
-            captured.setdefault(key, ([x.clone() if torch.is_tensor(x) else x for x in a], kw))
+            captured.setdefault(_edge_key(a, n_lig), ([x.clone() if torch.is_tensor(x) else x for x in a], kw))
             return real(*a, **kw)
 
         real = egnn_mod.egnn_edge_dense
@@ -197,7 +266,7 @@ def main():
         chain = []  # (shape key, adj) of every edge-kernel launch in the profiled steps
 
         def listing(*a, **kw):
-            chain.append((("kk" if a[0].shape[1] == pad.n_kp else "ll") + str(a[0].shape[1]), a[15]))
+            chain.append((_edge_key(a, n_lig), a[15]))
             return real(*a, **kw)
 
         egnn_mod.egnn_edge_dense = listing
@@ -211,7 +280,9 @@ def main():
             egnn_mod.egnn_edge_dense = real
         # kernel rows only: an operator's row repeats the time of the kernels it launched
         table = _kernel_table(prof, STEPS, wall)
-        lines = [f"bucket {n_lig}: kk={'nbr' if isinstance(kk, tuple) else 'dense'} {table[0]}"] + table[1:]
+        layout = ("block" if isinstance(kk, dict) else f"nbr{int(kk[0].shape[-1])}" if isinstance(kk, tuple)
+                  else "dense")
+        lines = [f"bucket {n_lig}: kk={layout} {table[0]}"] + table[1:]
         # the edge kernel launch by launch: profiled device time beside active pairs
         kern = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
                        and "egnn_edge_" in e.name), key=lambda e: e.time_range.start)
@@ -223,8 +294,15 @@ def main():
                              f"{sum(r[1] for r in rows) / len(rows):.0f} active pairs, first "
                              f"{rows[0][0] / 1e3:.4f} ms at {rows[0][1]} pairs, last {rows[-1][0] / 1e3:.4f} ms "
                              f"at {rows[-1][1]} pairs")
-        else:
+        elif chain:
             lines.append(f"  edge kernel: {len(kern)} kernel events for {len(chain)} launches (not matched)")
+        step_ms = _device_ms(lambda: model.sample(enc, kk, sample_steps=1, generator=gen))
+        by_module = module_device_ms(model, enc, kk, gen, GVP_MODULES if model.gvp else EGNN_MODULES)
+        total = sum(ms for _, ms in by_module.values())
+        lines.append(f"  one reverse step {step_ms:.3f} device ms; its calls replayed by module (device ms, share): "
+                     + "; ".join(f"{label} x{n} {ms:.3f} ms {ms / step_ms * 100:.1f}%"
+                                 for label, (n, ms) in by_module.items())
+                     + f"; these modules {total / step_ms * 100:.1f}% of the step")
         for key, (a, kw) in sorted(captured.items()):
             clocks = egnn_edge.phase_clocks(*a, **kw)
             total = sum(clocks.values())

@@ -4,9 +4,9 @@ carries (as assert_case reads them for the JAX runner), and the port's
 serving API on the CPU.
 
 The chain_loss cases run the training loss on the injected (t, eps), as
-parity_jax.run_case runs them. refexec_chain_loss_fake_atoms_egnn is not in
-GOLDENS yet: it uses rec_encoder_type 'fixed', and the fixed encoder is not
-ported yet."""
+parity_jax.run_case runs them. All 18 cases of tests/golden/ run: the EGNN
+and GVP dynamics and encoders, and the chains with learned and fixed
+encoders."""
 from pathlib import Path
 
 import numpy as np
@@ -66,7 +66,13 @@ def test_serving_api(tmp_path):
 
 GOLDENS = ["egnn_dynamics_mn0", "egnn_dynamics_mn1", "egnn_encoder", "refexec_chain_learned_egnn",
            "refexec_chain_two_pockets_egnn", "refexec_chain_frames_egnn", "refexec_egnn_dynamics_mn0_executed",
-           "refexec_egnn_encoder_executed", "refexec_chain_loss_egnn", "refexec_chain_loss_hinge_ip_egnn"]
+           "refexec_egnn_encoder_executed", "refexec_chain_loss_egnn", "refexec_chain_loss_hinge_ip_egnn",
+           "refexec_chain_fixed_egnn", "refexec_chain_loss_fake_atoms_egnn", "gvp_dynamics_mean", "gvp_dynamics_mn10",
+           "gvp_encoder", "refexec_gvp_dynamics_mn10", "refexec_gvp_encoder_executed", "refexec_chain_learned_gvp"]
+
+
+def test_goldens_cover_the_directory():
+    assert sorted(GOLDENS) == sorted(p.stem for p in (ROOT / "tests/golden").glob("*.npz"))
 
 
 def _chain_complex(meta, inputs, cfg):
@@ -77,7 +83,8 @@ def _chain_complex(meta, inputs, cfg):
     return make_complex(inputs["rec_x"], inputs["rec_h"], inputs["rec_mask"].astype(bool),
                         inputs.get("lig_x", np.zeros((b, n_pad, 3), np.float32)),
                         inputs.get("lig_h", np.zeros((b, n_pad, cfg.atom_nf), np.float32)),
-                        lig_mask, n_kp=meta["n_kp"], kp_feat_dim=meta["kp_feat_dim"], ip_x=inputs.get("ip_x"),
+                        lig_mask, n_kp=meta["n_kp"], kp_feat_dim=meta["kp_feat_dim"],
+                        kp_vec_dim=meta.get("kp_vec_dim"), ip_x=inputs.get("ip_x"),
                         ip_mask=inputs["ip_mask"].astype(bool) if "ip_mask" in inputs else None)
 
 
@@ -87,27 +94,33 @@ def test_golden_case(name):
         kind, meta, _, inputs, expected = unflatten_case(z)
         flat = read_golden_params(z)
     cfg = DiffusionConfig(**meta["config"])
-    if kind == "egnn_dynamics":
+    if kind in ("egnn_dynamics", "gvp_dynamics"):
         dyn = dynamics_from_config(cfg, torch.Generator())
         load_params(dyn, flat)
         lig_x, lig_h, kp_x, kp_h = (t(inputs[k])[None] for k in ("lig_x", "lig_h", "kp_x", "kp_h"))
         lig_mask = torch.ones(lig_x.shape[:2], dtype=torch.bool)
         kp_mask = torch.ones(kp_x.shape[:2], dtype=torch.bool)
         kk = dense_radius_adjacency(kp_x, kp_mask, kp_x, kp_mask, meta["kk_cut"], exclude_self=True)
+        extra = (t(inputs["kp_v"])[None],) if kind == "gvp_dynamics" else ()
         with torch.no_grad():
-            eps_h, eps_x = dyn(lig_x, lig_h, lig_mask, kp_x, kp_h, kp_mask, torch.full((1,), meta["t_val"]), kk)
+            eps_h, eps_x = dyn(lig_x, lig_h, lig_mask, kp_x, kp_h, kp_mask, torch.full((1,), meta["t_val"]), kk,
+                               *extra)
         got = {"eps_h": eps_h[0], "eps_x": eps_x[0]}
-    elif kind == "egnn_encoder":
+    elif kind in ("egnn_encoder", "gvp_encoder"):
         model = KeypointDiffusion(cfg)
         load_params(model.encoder, flat)
         x0 = inputs["rec_x"]
         n = x0.shape[0]
         cpx = tsyn(0, batch=1, n_rec_pad=n, n_lig_pad=6, n_rec_feat=inputs["rec_h"].shape[1], n_lig_feat=5,
-                   n_kp=meta["n_kp"], kp_feat_dim=meta["kp_feat_dim"], min_rec=n, min_lig=6)
-        cpx = cpx.replace(rec_x=t(x0)[None], rec_h=t(inputs["rec_h"])[None],
-                          rec_res_idx=t(inputs["rec_res_idx"].astype(np.int32))[None])
+                   n_kp=meta["n_kp"], kp_feat_dim=meta["kp_feat_dim"], kp_vec_dim=meta.get("kp_vec_dim"),
+                   min_rec=n, min_lig=6)
+        cpx = cpx.replace(rec_x=t(x0)[None], rec_h=t(inputs["rec_h"])[None])
+        if "rec_res_idx" in inputs:
+            cpx = cpx.replace(rec_res_idx=t(inputs["rec_res_idx"].astype(np.int32))[None])
         enc, _ = model.encode(cpx)
         got = {"kp_x": enc.kp_x[0], "kp_h": enc.kp_h[0]}
+        if enc.kp_v is not None:
+            got["kp_v"] = enc.kp_v[0]
     elif kind == "chain_loss":
         model = KeypointDiffusion(cfg)
         load_params(model, flat)
@@ -119,7 +132,7 @@ def test_golden_case(name):
         load_params(model, flat)
         with torch.no_grad():
             enc, kk = model.encode(_chain_complex(meta, inputs, cfg))
-            got = model.sample(enc, kk, return_every=meta.get("return_every", 0),
+            got = model.sample(enc, kk, init_com=inputs.get("init_com"), return_every=meta.get("return_every", 0),
                                noise={k: inputs[k] for k in ("init_x", "init_h", "steps_x", "steps_h")})
     for k, v in expected.items():
         assert_close(got[k], v, rtol=meta.get("rtol", 5e-4), atol=meta.get("atol", 1e-4), msg=f"{name}:{k}")

@@ -42,14 +42,14 @@ def jax_tree(flat: dict) -> dict:
     return params
 
 
-def jax_complex(cpx, n_kp: int, kp_feat_dim: int):
+def jax_complex(cpx, n_kp: int, kp_feat_dim: int, kp_vec_dim=None):
     """A port PaddedComplex's padded inputs as a kpdiff_tpu PaddedComplex."""
     from kpdiff_tpu.models.complex import make_complex
 
     a = {f: getattr(cpx, f).detach().cpu().numpy() for f in
          ("rec_x", "rec_h", "rec_mask", "rec_res_idx", "lig_x", "lig_h", "lig_mask", "ip_x", "ip_mask")}
     return make_complex(a["rec_x"], a["rec_h"], a["rec_mask"], a["lig_x"], a["lig_h"], a["lig_mask"],
-                        n_kp=n_kp, kp_feat_dim=kp_feat_dim, rec_res_idx=a["rec_res_idx"],
+                        n_kp=n_kp, kp_feat_dim=kp_feat_dim, kp_vec_dim=kp_vec_dim, rec_res_idx=a["rec_res_idx"],
                         ip_x=a["ip_x"], ip_mask=a["ip_mask"])
 
 
@@ -136,3 +136,48 @@ def case_setup(case, dtype="float32", seed=0):
 
 def jax_t_eps(t_eps):
     return (jnp.asarray(t_eps[0].astype(np.int32)), jnp.asarray(t_eps[1]), jnp.asarray(t_eps[2]))
+
+
+# ---- every model family of configs/, at reduced depth and width
+
+def reduce_family(cfg, dtype="float32", n_rec=48, block=16):
+    """`cfg` (a configs/*.yml dict) cut to a few layers and narrow widths,
+    dropout 0 and compute dtype `dtype`, at n_rec pocket atoms, 16 ligand
+    atoms and 6 learned keypoints; block kk layouts get tiles of `block`
+    (three windows at n_rec 48)."""
+    cfg["padding"].update(n_rec=n_rec, n_lig=16, n_ip=16)
+    cfg["graph"]["n_keypoints"] = 6
+    if "dynamics" in cfg:
+        cfg["dynamics"].update(n_layers=2, hidden_nf=16, compute_dtype=dtype)
+        cfg["rec_encoder"].update(n_convs=2, hidden_n_node_feat=16, out_n_node_feat=12, compute_dtype=dtype)
+    if "dynamics_gvp" in cfg:
+        cfg["dynamics_gvp"].update(n_convs=2, n_hidden_scalars=12, vector_size=4, n_message_gvps=2,
+                                   n_update_gvps=1, n_noise_gvps=2, dropout=0.0, compute_dtype=dtype)
+        cfg["rec_encoder_gvp"].update(out_scalar_size=10, vector_size=4, n_rr_convs=2, n_rk_convs=2,
+                                      n_message_gvps=2, n_update_gvps=1, dropout=0.0, compute_dtype=dtype)
+    for section in ("dynamics", "dynamics_gvp"):
+        if cfg.get(section, {}).get("kk_layout") == "block":
+            cfg[section]["kk_block_size"] = block
+    return cfg
+
+
+def family_setup(cfg, seed=0, batch=4):
+    """The same weights in both packages (the port's seeded init carried into
+    a JAX param tree) and a molgen batch through the port's loader:
+    (JAX model, JAX params, port model, port batch, JAX batch)."""
+    pad = PaddingConfig.from_config(cfg)
+    train_ds, _ = molgen_splits_for_config(cfg, pad, resolve_feature_sizes(cfg)[0], 3 * batch, seed)
+    tm = tmodel(cfg, device="cpu", seed=seed + 1)
+    loader = PaddedLoader(train_ds, pad, batch, pad.n_kp, tm.cfg.rec_nf, seed=seed, drop_last=True,
+                          kp_vec_dim=tm.kp_vec_dim)
+    tb = next(loader.epoch())
+    return (jmodel(cfg), jax_tree(export_flat(tm)), tm, tb,
+            jax_complex(tb, pad.n_kp, tm.cfg.rec_nf, tm.kp_vec_dim))
+
+
+def edge_set(kk):
+    """{(b, dst, src)} of a dense adjacency (B, Ns, Nd) or a neighbor list (idx, valid)."""
+    if isinstance(kk, tuple):
+        idx, valid = (np.asarray(a) for a in kk)
+        return {(b, d, int(idx[b, d, k])) for b, d, k in zip(*np.nonzero(valid))}
+    return {(b, d, s) for b, s, d in zip(*np.nonzero(np.asarray(kk)))}
