@@ -1,12 +1,12 @@
 """Where the port's reverse-diffusion and training steps spend their time on the card.
 
-    python3 -m kpdiff_tpu_torch.step_profile [--config YML] [--buckets 16 32 48] [--batch 128] [--params NPZ]
-                                             [--own_kk] [--out FILE]
-    python3 -m kpdiff_tpu_torch.step_profile --train [--params NPZ] [--out FILE]
+    python3 -m kpdiff_tpu_torch.step_profile [--config YML] [--buckets 16 32 48] [--params NPZ] [--own_kk]
+                                             [--out FILE]
+    python3 -m kpdiff_tpu_torch.step_profile --train [--config YML] [--params NPZ] [--out FILE]
 
 Builds --config (default configs/egnn_40kp.yml; any family of configs/) at
 full width and depth (seeded random weights unless --params names a keystr
-npz), encodes a synthetic batch of pockets per ligand bucket, compacts kk as
+npz), encodes a synthetic batch of 128 pockets per ligand bucket, compacts kk as
 the samplers do (--own_kk keeps the encoder's dense or block kk), and runs
 10 strided sampling steps under torch.profiler.
 Prints, per bucket, the wall time per step, the device time per step summed
@@ -22,7 +22,7 @@ the share a hand-written kernel for it could act on. --out also writes the
 tables to a file.
 
 --train profiles training of --config instead (the flagship by default): molgen's 256-complex split at
-full padding, batch 64, the port's train step; 3 warm-up steps, then 6
+full padding, the config's batch size, the port's train step; 3 warm-up steps, then 6
 steps under torch.profiler (wall and device ms per step, busy share, top
 kernels), then the dense edge's share: every EGNNEdgeDense call of one step
 (ll and kk, 12; the plain version under autograd) replayed forward and
@@ -76,7 +76,7 @@ def _kernel_table(prof, steps, wall):
 
 
 def train_profile(args):
-    """Flagship training steps on the card: profiler table, then the dense edge's share."""
+    """Training steps of --config on the card: profiler table, then the dense edge's share."""
     from kpdiff_tpu_torch.cli.train import train_config_from
     from kpdiff_tpu_torch.data.dataset import PaddedLoader, resolve_lig_buckets
     from kpdiff_tpu_torch.data.molgen import molgen_splits_for_config
@@ -149,8 +149,9 @@ def train_profile(args):
                 edge_ms += start.elapsed_time(end) / 3
             model.zero_grad(set_to_none=True)
             egnn_mod.EGNNEdgeDense.forward = capturing
+            shapes = sorted({f"{c[1].shape[1]}x{c[2].shape[1]}" for c in calls})
             report.append(f"bucket {bucket}: step {step_ms:.3f} ms (CUDA events); its {len(calls)} dense edge calls "
-                          f"(ll {bucket}, kk {pad.n_kp}) replayed forward and backward: {edge_ms:.3f} ms, "
+                          f"(Ns x Nd {', '.join(shapes)}) replayed forward and backward: {edge_ms:.3f} ms, "
                           f"{edge_ms / step_ms * 100:.1f}% of the step")
     finally:
         egnn_mod.EGNNEdgeDense.forward = real_forward
@@ -210,10 +211,9 @@ def module_device_ms(model, enc, kk, gen, modules):
     return out
 
 
-def _edge_key(a, n_lig):
-    """ll or kk, with the kernel's (Ns x Nd) shape."""
-    ns, nd = a[0].shape[1], a[1].shape[1]
-    return f"{'ll' if ns == nd == n_lig else 'kk'}{ns}x{nd}"
+def _edge_key(role, a):
+    """ll or kk (the EGNNEdgeDense module running, `role`), with the kernel's (Ns x Nd) shape."""
+    return f"{role['now']}{a[0].shape[1]}x{a[1].shape[1]}"
 
 
 def main():
@@ -221,10 +221,9 @@ def main():
     ap.add_argument("--config", default=CONFIG, help=f"model config (default {CONFIG})")
     ap.add_argument("--params", default=None)
     ap.add_argument("--buckets", type=int, nargs="+", default=[16, 32, 48])
-    ap.add_argument("--batch", type=int, default=BATCH)
     ap.add_argument("--own_kk", action="store_true",
                     help="sample on the encoder's own kk (dense or blocks) instead of compact_kk's neighbor list")
-    ap.add_argument("--train", action="store_true", help="profile flagship training steps instead of sampling")
+    ap.add_argument("--train", action="store_true", help="profile training steps of --config instead of sampling")
     ap.add_argument("--out", default=None, help="also write the report to this path")
     args = ap.parse_args()
     if args.train:
@@ -239,9 +238,13 @@ def main():
     dev = next(model.parameters()).device
     n_rec_feat, n_lig_feat, _ = resolve_feature_sizes(cfg)
     report = [f"{torch.cuda.get_device_name(0)}; {args.config}; weights "
-              f"{args.params or 'random seed 0'}; batch {args.batch}; {STEPS} steps"]
+              f"{args.params or 'random seed 0'}; batch {BATCH}; {STEPS} steps"]
+    role = {}  # which dense edge module (edge_ll or edge_kk) is running: 'll' or 'kk'
+    for name, mod in model.named_modules():
+        if isinstance(mod, egnn_mod.EGNNEdgeDense):
+            mod.register_forward_pre_hook(lambda m, a, r=name.rsplit(".", 1)[-1][-2:]: role.update(now=r))
     for n_lig in args.buckets:
-        cpx = synthetic_batch(0, batch=args.batch, n_rec_pad=pad.n_rec, n_lig_pad=n_lig, n_rec_feat=n_rec_feat,
+        cpx = synthetic_batch(0, batch=BATCH, n_rec_pad=pad.n_rec, n_lig_pad=n_lig, n_rec_feat=n_rec_feat,
                               n_lig_feat=n_lig_feat, n_kp=pad.n_kp, kp_feat_dim=model.cfg.rec_nf,
                               kp_vec_dim=model.kp_vec_dim, n_ip_pad=pad.n_ip, min_rec=min(260, 3 * pad.n_rec // 4),
                               min_lig=min(18, n_lig - 2), device=dev)
@@ -253,7 +256,7 @@ def main():
         captured = {}  # the edge kernel's inputs, first launch at each shape
 
         def recording(*a, **kw):
-            captured.setdefault(_edge_key(a, n_lig), ([x.clone() if torch.is_tensor(x) else x for x in a], kw))
+            captured.setdefault(_edge_key(role, a), ([x.clone() if torch.is_tensor(x) else x for x in a], kw))
             return real(*a, **kw)
 
         real = egnn_mod.egnn_edge_dense
@@ -266,7 +269,7 @@ def main():
         chain = []  # (shape key, adj) of every edge-kernel launch in the profiled steps
 
         def listing(*a, **kw):
-            chain.append((_edge_key(a, n_lig), a[15]))
+            chain.append((_edge_key(role, a), a[15]))
             return real(*a, **kw)
 
         egnn_mod.egnn_edge_dense = listing

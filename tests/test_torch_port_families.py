@@ -285,13 +285,33 @@ def test_sampler_from_params_on_cpu(name, tmp_path):
 def test_byop_ca_only_pocket(tmp_path):
     """A *_ca config's pocket from a receptor PDB: one Cα node per pocket
     residue, the 20 residue one-hots, no interface points; the all-atom
-    config's pocket has the same residues."""
+    config's pocket has the same residues. The Cα pocket equals the one
+    kpdiff_tpu's processing CLI (process_bindingmoad, ca_only) cuts from the
+    same receptor with the ligand as HETATM records."""
     from chip_smoke import write_synthetic_complex
+    from kpdiff_tpu.cli.process_bindingmoad import process_ligand_and_pocket as jax_pocket
+    from kpdiff_tpu.data.pdb import parse_pdb
+    from kpdiff_tpu.data.pocket import make_element_map
     from kpdiff_tpu_torch.cli.byop import process_ligand_and_pocket
     from kpdiff_tpu_torch.constants import aa_to_idx
+    from kpdiff_tpu_torch.data.pdb import format_pdb_line
+    from kpdiff_tpu_torch.data.sdf import SdfMol, parse_sdf, write_sdf
 
     ca_cfg, aa_cfg = tload(ROOT / "configs/egnn_ca.yml"), tload(ROOT / "configs/egnn_40kp.yml")
     pdb, sdf = write_synthetic_complex(np.random.default_rng(3), tmp_path, aa_cfg["dataset"]["lig_elements"])
+    # the ligand at the PDB's precision, in the SDF and as HETATM records of a complex PDB
+    lig = parse_sdf(sdf)[0]
+    lig = SdfMol(lig.title, lig.elements, np.round(lig.coords, 3), lig.bonds)
+    write_sdf([lig], sdf)
+    rec_lines = [ln for ln in pdb.read_text().splitlines() if ln.startswith("ATOM")]
+    het = [format_pdb_line(len(rec_lines) + i + 1, f"{el}{i + 1}", "LIG", "B", 1, *x, el, hetero=True)
+           for i, (el, x) in enumerate(zip(lig.elements, lig.coords))]
+    complex_pdb = tmp_path / "complex.pdb"
+    complex_pdb.write_text("\n".join(rec_lines + het) + "\nEND\n")
+    ds = ca_cfg["dataset"]
+    want = jax_pocket(parse_pdb(complex_pdb, remove_hydrogen=True), "LIG", "B", 1,
+                      make_element_map(ds["rec_elements"]), make_element_map(ds["lig_elements"]),
+                      pocket_cutoff=ds["pocket_cutoff"], ca_only=True)
     ca = process_ligand_and_pocket(str(pdb), str(sdf), ca_cfg)
     full = process_ligand_and_pocket(str(pdb), str(sdf), aa_cfg)
     n_res = len(np.unique(full["rec_res_idx"]))
@@ -301,3 +321,6 @@ def test_byop_ca_only_pocket(tmp_path):
     assert set(ca["rec_atoms"].name) == {"CA"}
     np.testing.assert_array_equal(ca["rec_pos"], ca["rec_atoms"].coords.astype(np.float32))
     np.testing.assert_array_equal(ca["rec_res_idx"], np.arange(n_res))
+    for key in ("rec_pos", "rec_feat", "rec_res_idx", "interface_points"):
+        assert ca[key].dtype == want[key].dtype, key
+        np.testing.assert_array_equal(ca[key], want[key], err_msg=key)
