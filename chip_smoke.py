@@ -57,9 +57,24 @@ Phases, each timed on its own line; any failure raises (non-zero exit):
      artifacts/gvp_40kp_trained_params.npz, gated on validity >= 0.95,
      connectivity >= 0.82 and atom_type_kl <= 0.03, beside
      STRIDED_QUALITY_GVP.json's K=250 row.
+ 10. reference user: synthetic BindingMOAD assemblies and split files ->
+     cli.process_bindingmoad -> cli.train on the processed splits at the
+     flagship's full width (3 steps at batch 4) -> cli.sample --ligand_size
+     random (the histogram just written; K=50) -> cli.compute_metrics, and
+     cli.process_crossdocked on three pairs; both trained archives turned
+     into the upstream state_dict layout (to_reference_state_dict), through
+     torch.save / torch.load and the port's convert_reference_checkpoint,
+     every leaf equal bitwise; the trained flagship with the upstream's graph
+     options set in memory, batch 32, bucket 32, K=50, beside the config's
+     own kl_k 5 pairs: kl_k 0 under both z_semantics (24 launches a step,
+     every launch of a 3-step chain against the plain version, the new kl
+     40 -> 32 and lk 32 -> 40 grids timed) and ll_k 16 (12 a step); the
+     learned EGNN and GVP encoders with rr_layout nbr and block, timed at
+     batch 32.
 Every sampling path is held to its kernel launch count (ChainLog): for EGNN,
-n_layers launches per reverse step for ll and as many again for kk while it
-is dense or in blocks (12 a step; 6 where compact_kk gives a neighbor list);
+n_layers launches per reverse step for ll, as many again for kk while it is
+dense or in blocks, and with kl_k 0 as many again for each of kl and lk (12
+a step; 6 where compact_kk gives a neighbor list; 24 with dense kl/lk);
 none for GVP, whose messages run in plain PyTorch.
 Weights: the trained flagship, artifacts/egnn_40kp_trained_params.npz
 (--params names another keystr npz archive), and the trained gvp_40kp; the
@@ -105,8 +120,10 @@ from kpdiff_tpu_torch.data.pdb import format_pdb_line, parse_pdb
 from kpdiff_tpu_torch.data.sdf import SdfMol, parse_sdf, write_sdf
 from kpdiff_tpu_torch.models.complex import synthetic_batch, synthetic_complex_np
 from kpdiff_tpu_torch.models.diffusion import KeypointDiffusion
-from kpdiff_tpu_torch.models.size_dist import save_dataset_histogram
+from kpdiff_tpu_torch.models.size_dist import LigandSizeDistribution, save_dataset_histogram
 from kpdiff_tpu_torch.ops.cuda import egnn_edge
+from kpdiff_tpu_torch.ops.neighbors import dense_radius_adjacency
+from kpdiff_tpu_torch.ops.spatial import block_radius_adjacency, choose_tile, spatial_sort_permutation
 from kpdiff_tpu_torch.serve import KeypointSampler, decode_ligands
 from kpdiff_tpu_torch.training import trainer
 from kpdiff_tpu_torch.utils.params_io import load_params, read_keystr_npz
@@ -140,6 +157,11 @@ FAMILY_BATCH, FAMILY_K, FAMILY_TRAIN_STEPS, FAMILY_OWN_KK_STEPS = 32, 50, 5, 5
 OWN_KK = ("egnn_ca", "egnn_all_atom")  # fixed-encoder EGNN families whose own kk (dense 128 x 128, blocks) feeds the kernel
 GVP_PARAMS = "artifacts/gvp_40kp_trained_params.npz"
 GVP_QUALITY_GATES = dict(validity=(">=", 0.95), connectivity=(">=", 0.82), atom_type_kl=("<=", 0.03))
+# phase 10: synthetic BindingMOAD splits, train CLI steps and sampling; the upstream graph options' chains
+RAW_SPLITS = {"train": 5, "val": 1, "test": 2}
+RAW_BATCH, RAW_TRAIN_STEPS, RAW_SAMPLES, RAW_K = 4, 3, 8, 50
+REF_BATCH, REF_BUCKET, REF_K, REF_CHECK_STEPS, ENCODER_REPEATS = 32, 32, 50, 3, 3
+EXECUTED = dict(dynamics=dict(z_semantics="executed"), rec_encoder=dict(attn_semantics="executed"))
 RESIDUE = (("N", "N"), ("CA", "C"), ("C", "C"), ("O", "O"), ("CB", "C"), ("CG", "C"), ("CD", "C"), ("OE1", "O"))
 
 
@@ -462,12 +484,14 @@ def kk_layout(kk) -> str:
 
 def launches_per_step(model, kk) -> int:
     """Edge-kernel launches of one reverse step: n_layers for ll, as many
-    again for kk while it is dense or in blocks (EGNN with update_kp_feat);
-    none for GVP, whose messages run in plain PyTorch."""
+    again for kk while it is dense or in blocks (EGNN with update_kp_feat),
+    and with kl_k 0 as many again for the dense kl grid and, with
+    update_kp_feat, for lk; none for GVP, whose messages run in plain PyTorch."""
     if model.gvp:
         return 0
     dyn = model.dynamics
-    return dyn.n_layers * (1 + int(dyn.update_kp_feat and not isinstance(kk, tuple)))
+    dense_kl = int(dyn.kl_k <= 0) * (1 + int(dyn.update_kp_feat))
+    return dyn.n_layers * (1 + dense_kl + int(dyn.update_kp_feat and not isinstance(kk, tuple)))
 
 
 class ChainLog:
@@ -509,11 +533,11 @@ class ChainLog:
                     launches_per_step=per_step)
 
 
-def write_synthetic_complex(rng, out_dir, lig_elements, n_lig=24, n_res=60, min_dist=3.5, extent=12.0):
-    """A receptor PDB of n_res eight-atom residues placed around a molgen
+def synthetic_complex_lines(rng, lig_elements, n_lig=24, n_res=60, min_dist=3.5, extent=12.0):
+    """PDB ATOM lines of n_res eight-atom residues placed around a molgen
     ligand of n_lig atoms (no receptor atom within min_dist of it; residue
-    centres within `extent` of a ligand atom), and the ligand as an SDF with
-    its perceived bonds. At pocket_cutoff 8 its pocket holds 260-384 atoms."""
+    centres within `extent` of a ligand atom), the ligand's coordinates and
+    its elements. At pocket_cutoff 8 its pocket holds 260-384 atoms."""
     lig, types = random_molecule(rng, n_lig, lig_elements)
     lig = (lig + 30.0).astype(np.float32)
     centers = []
@@ -532,9 +556,15 @@ def write_synthetic_complex(rng, out_dir, lig_elements, n_lig=24, n_res=60, min_
             while np.linalg.norm(lig - x, axis=1).min() < min_dist:
                 x = c + rng.normal(scale=1.1, size=3)
             lines.append(format_pdb_line(len(lines) + 1, name, "GLU", "A", r + 1, *x, el))
+    return lines, lig, [lig_elements[t] for t in types]
+
+
+def write_synthetic_complex(rng, out_dir, lig_elements, **kw):
+    """synthetic_complex_lines as receptor.pdb and the ligand as
+    ref_ligand.sdf (with its perceived bonds) in out_dir."""
+    lines, lig, els = synthetic_complex_lines(rng, lig_elements, **kw)
     pdb, sdf = Path(out_dir) / "receptor.pdb", Path(out_dir) / "ref_ligand.sdf"
     pdb.write_text("\n".join(lines) + "\nEND\n")
-    els = [lig_elements[t] for t in types]
     write_sdf([SdfMol("ref_ligand", els, lig, perceive_bonds(lig, els))], sdf)
     return pdb, sdf
 
@@ -945,6 +975,427 @@ def quality_phase(model, cfg, train_ds, test_ds, seed, record_file="STRIDED_QUAL
                 n_molecules=len(ligands), sample_s=sample_s, metrics_s=metrics_s), path
 
 
+# ---- phase 10: the reference user's path
+
+def load_pickle(path):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def write_moad_raw(rng, root, lig_elements, counts=RAW_SPLITS):
+    """BindingMOAD layout under root: {id}.bio1 assemblies (synthetic_complex_lines
+    with the ligand as HETATM LIG A 201) and moad_{split}.txt split files of
+    counts[split] entries each."""
+    data, splits = Path(root) / "moad", Path(root) / "splits"
+    data.mkdir(parents=True)
+    splits.mkdir()
+    k = 0
+    for split, n in counts.items():
+        entries = []
+        for _ in range(n):
+            k += 1
+            pid = f"{k}syn"
+            lines, lig, els = synthetic_complex_lines(rng, lig_elements, n_lig=int(rng.integers(18, 27)))
+            for j, (p, el) in enumerate(zip(lig, els)):
+                lines.append(format_pdb_line(len(lines) + 1, f"{el}{j}"[:4], "LIG", "A", 201, *p, el, hetero=True))
+            (data / f"{pid}.bio1").write_text("\n".join(lines) + "\nEND\n")
+            entries.append(f"{pid}_LIG:A:201\n")
+        (splits / f"moad_{split}.txt").write_text("".join(entries))
+    return data, splits
+
+
+def raw_data_phase(cfg, seed, tmp):
+    """Phase 10 (a): synthetic BindingMOAD assemblies -> the port's
+    process_bindingmoad -> its train CLI (RAW_TRAIN_STEPS steps) -> its sample
+    CLI with --ligand_size random -> compute_metrics; then process_crossdocked
+    on a few pocket/ligand pairs. Returns the record and launches by path."""
+    from kpdiff_tpu_torch.cli import compute_metrics, process_bindingmoad, process_crossdocked
+
+    tmp = Path(tmp)
+    rng = np.random.default_rng(seed + 10)
+    lig_elements = cfg["dataset"]["lig_elements"]
+    t0 = time.perf_counter()
+    data, splits = write_moad_raw(rng, tmp / "raw", lig_elements)
+    processed = tmp / "processed"
+    process_bindingmoad.main(["--data_dir", str(data), "--split_dir", str(splits), "--out", str(processed)])
+    process_s = time.perf_counter() - t0
+    _, rec_bounds, lig_bounds = load_pickle(processed / "train_n_node_joint_dist.pkl")
+    n_split = {s: len(load_pickle(processed / f"{s}.pkl")["lig_files"]) for s in RAW_SPLITS}
+    tensors = [k for k, v in load_pickle(processed / "train.pkl").items() if torch.is_tensor(v)]
+    if n_split != RAW_SPLITS or tensors:
+        raise RuntimeError(f"process_bindingmoad: complexes per split {n_split}, expected {RAW_SPLITS}; "
+                           f"torch tensors in train.pkl: {tensors}")
+
+    cfg = copy.deepcopy(cfg)
+    cfg["dataset"]["location"] = str(processed)
+    cfg["experiment"] = dict(cfg["experiment"], name="raw", results_dir=str(tmp / "runs"))
+    cfg["training"].update(batch_size=RAW_BATCH, sample_interval=0)
+    (tmp / "raw.yml").write_text(dump_yaml(cfg))
+    sync()
+    egnn_edge.launches = 0
+    t0 = time.perf_counter()
+    run_dir, state = train_cli.main(["--config", str(tmp / "raw.yml"), "--device", DEVICE, "--seed", str(seed),
+                                     "--epochs", str(RAW_TRAIN_STEPS)])
+    sync()
+    train_s, train_launches = time.perf_counter() - t0, egnn_edge.launches
+    rows = trainer.MetricsLog(Path(run_dir) / "train_metrics.pkl").rows
+    if state.step != RAW_TRAIN_STEPS or not all(np.isfinite(r["l2"]) for r in rows):
+        raise RuntimeError(f"train CLI on the processed splits: step {state.step}, rows {rows}")
+
+    out = tmp / "sampled"
+    draws, real_draw = [], LigandSizeDistribution.sample
+
+    def recorded_draw(dist, *a, **kw):  # the sizes --ligand_size random draws from the histogram
+        sizes = real_draw(dist, *a, **kw)
+        draws.extend(int(n) for n in np.ravel(sizes))
+        return sizes
+
+    LigandSizeDistribution.sample = recorded_draw
+    try:
+        with ChainLog() as log:
+            t0 = time.perf_counter()
+            sample_cli.main(["--model_dir", str(run_dir), "--split", "test", "--samples_per_pocket",
+                             str(RAW_SAMPLES), "--max_batch_size", str(RAW_SAMPLES), "--max_tries", "1",
+                             "--ligand_size", "random", "--sample_steps", str(RAW_K), "--out", str(out),
+                             "--device", DEVICE, "--seed", str(seed)])
+            sample_s = time.perf_counter() - t0
+    finally:
+        LigandSizeDistribution.sample = real_draw
+    sample_path = log.check("raw data: sample CLI --ligand_size random")
+    if len(draws) != RAW_SPLITS["test"] * RAW_SAMPLES or not all(lig_bounds[0] <= n <= lig_bounds[1] for n in draws):
+        raise RuntimeError(f"sample CLI: ligand sizes {draws}, expected {RAW_SAMPLES} a pocket within {lig_bounds}")
+    n_mols = 0
+    for i in range(RAW_SPLITS["test"]):
+        pdir = out / f"pocket_{i}"
+        missing = [f for f in ("raw_ligands.sdf", "pocket.pdb", "keypoints.xyz", "sample_time.txt", "sample_time.pkl")
+                   if not (pdir / f).exists()]
+        mols = parse_sdf(pdir / "raw_ligands.sdf") if not missing else []
+        if missing or not mols or not all(1 <= m.n_atoms <= lig_bounds[1] for m in mols):
+            raise RuntimeError(f"sample CLI: {pdir} misses {missing} or holds molecules of "
+                               f"{[m.n_atoms for m in mols]} atoms (largest fragments; histogram {lig_bounds})")
+        n_mols += len(mols)
+    res = compute_metrics.main(["--sampled_mols_dir", str(out)])
+    if not (out / "metrics.pkl").exists() or "validity" not in res["overall"]:
+        raise RuntimeError(f"compute_metrics: {res}")
+
+    # CrossDocked: pocket PDB / ligand SDF pairs named by an index pickle
+    cd = tmp / "crossdocked"
+    pairs = []
+    for i in range(3):
+        (cd / f"p{i}").mkdir(parents=True)
+        pdb, sdf = write_synthetic_complex(rng, cd / f"p{i}", lig_elements, n_lig=20 + i)
+        pairs.append((str(pdb.relative_to(cd)), str(sdf.relative_to(cd))))
+    with open(tmp / "index.pkl", "wb") as f:
+        pickle.dump({"train": pairs[:2], "test": pairs[2:]}, f)
+    process_crossdocked.main(["--data_dir", str(cd), "--index_file", str(tmp / "index.pkl"),
+                              "--out", str(tmp / "cd_processed")])
+    cd_counts = {s: len(load_pickle(tmp / "cd_processed" / f"{s}.pkl")["lig_files"]) for s in ("train", "test")}
+    if cd_counts != {"train": 2, "test": 1} or not (tmp / "cd_processed" / "train_n_node_joint_dist.pkl").exists():
+        raise RuntimeError(f"process_crossdocked: {cd_counts}")
+    print(f"raw data: process_bindingmoad {n_split} in {process_s:.3f} s (histogram rec "
+          f"{tuple(int(v) for v in rec_bounds)}, lig {tuple(int(v) for v in lig_bounds)}); train CLI {state.step} steps at batch {RAW_BATCH} in {train_s:.3f} s ({train_launches} "
+          f"kernel launches: held-out passes under no_grad); sample CLI {n_mols} molecules in {sample_s:.3f} s, "
+          f"validity {res['overall']['validity']:.3f}; process_crossdocked {cd_counts}", flush=True)
+    record = dict(splits=n_split, process_s=process_s, rec_bounds=[int(v) for v in rec_bounds],
+                  lig_bounds=[int(v) for v in lig_bounds], train_s=train_s, train_steps=state.step,
+                  train_l2=[r["l2"] for r in rows], sample_s=sample_s, n_mols=n_mols, metrics=res["overall"],
+                  crossdocked=cd_counts, **{f"sample_{k}": v for k, v in sample_path.items()})
+    return record, dict(raw_train_cli=train_launches, raw_sample_cli=sample_path["launches"])
+
+
+def to_reference_state_dict(flat, model):
+    """The upstream state_dict layout of a port parameter set ({dotted name:
+    array}): the inverse of utils/torch_import.py's key map (first layers
+    re-joined as concat(W_src, W_dst, W_dij), torch (out, in) weights)."""
+    cfg = model.cfg
+    sd = {}
+
+    def put(key, name, t=False):
+        v = np.asarray(flat[name])
+        sd[key] = np.ascontiguousarray(v.T) if t else v
+
+    def mlp(ref, ours, n=2):
+        for i, j in zip(range(n), (0, 2)):
+            put(f"{ref}.{j}.weight", f"{ours}.lin{i}.kernel", True)
+            put(f"{ref}.{j}.bias", f"{ours}.lin{i}.bias")
+
+    def first_layer(ref, ours, chain):
+        sd[f"{ref}.0.weight"] = np.ascontiguousarray(np.concatenate(
+            [flat[f"{ours}.{chain}_w_{p}"] for p in ("src", "dst", "dij")], axis=0).T)
+        put(f"{ref}.0.bias", f"{ours}.{chain}_b")
+
+    def ln(ref, ours):
+        put(f"{ref}.weight", f"{ours}.scale")
+        put(f"{ref}.bias", f"{ours}.bias")
+
+    def gvp(ref, ours):
+        put(f"{ref}.Wh", f"{ours}.Wh")
+        put(f"{ref}.Wu", f"{ours}.Wu")
+        put(f"{ref}.to_feats_out.0.weight", f"{ours}.to_feats_out.kernel", True)
+        put(f"{ref}.to_feats_out.0.bias", f"{ours}.to_feats_out.bias")
+        put(f"{ref}.scalar_to_vector_gates.weight", f"{ours}.scalar_to_vector_gates.kernel", True)
+        put(f"{ref}.scalar_to_vector_gates.bias", f"{ours}.scalar_to_vector_gates.bias")
+
+    dyn = cfg.dynamics
+    if cfg.architecture == "egnn":
+        mlp("dynamics.lig_encoder", "dynamics.lig_encoder")
+        mlp("dynamics.lig_decoder", "dynamics.lig_decoder")
+        if model.dynamics.kp_encoder is not None:
+            mlp("dynamics.rec_encoder", "dynamics.kp_encoder")
+        upd = dyn.get("update_kp_feat", False)
+        for i in range(dyn.get("n_layers", 6)):
+            ref, ours = f"dynamics.egnn.conv_layers.{i}", f"dynamics.conv{i}"
+            for et in ("ll", "kl", "lk", "kk") if upd else ("ll", "kl"):
+                e = f"{ours}.edge_{et}"
+                first_layer(f"{ref}.edge_mlp.{et}", e, "edge")
+                put(f"{ref}.edge_mlp.{et}.2.weight", f"{e}.edge_lin2_w", True)
+                put(f"{ref}.edge_mlp.{et}.2.bias", f"{e}.edge_lin2_b")
+                put(f"{ref}.soft_attention.{et}.0.weight", f"{e}.attn_w", True)
+                put(f"{ref}.soft_attention.{et}.0.bias", f"{e}.attn_b")
+                first_layer(f"{ref}.coord_mlp.{et}", e, "coord")
+                put(f"{ref}.coord_mlp.{et}.2.weight", f"{e}.coord_lin2_w", True)
+                put(f"{ref}.coord_mlp.{et}.2.bias", f"{e}.coord_lin2_b")
+                put(f"{ref}.coord_mlp.{et}.4.weight", f"{e}.coord_out_w", True)
+            for nt in ("lig", "kp") if upd else ("lig",):
+                mlp(f"{ref}.node_mlp.{nt}", f"{ours}.update_{nt}.node_mlp")
+                if f"{ours}.update_{nt}.LayerNorm_0.scale" in flat:
+                    ln(f"{ref}.layer_norm.{nt}", f"{ours}.update_{nt}.LayerNorm_0")
+    else:
+        for side, i in (("lig", 0), ("kp", 1)):
+            put(f"dynamics.{side}_encoder.0.weight", f"dynamics.{side}_enc.kernel", True)
+            put(f"dynamics.{side}_encoder.0.bias", f"dynamics.{side}_enc.bias")
+            ln(f"dynamics.{side}_encoder.2", f"dynamics.LayerNorm_{i}")
+        n_convs = dyn.get("n_convs", 6)
+        for i in range(n_convs):
+            ref, ours = f"dynamics.noise_predictor.conv_layers.{i}", f"dynamics.conv{i}"
+            conv = getattr(model.dynamics, f"conv{i}")
+            for src, ename, dst in conv.etypes:
+                for j in range(dyn.get("n_message_gvps", 3)):
+                    gvp(f"{ref}.edge_message_fns.{src}_{ename}_{dst}.{j}", f"{ours}.message_{ename}.message.gvp{j}")
+            for nt in conv.dst_ntypes:
+                for j in range(dyn.get("n_update_gvps", 2)):
+                    gvp(f"{ref}.node_update_fns.{nt}.{j}", f"{ours}.update_{nt}.gvp{j}")
+                ln(f"{ref}.message_layer_norms.{nt}.feat_norm", f"{ours}.msg_norm_{nt}.LayerNorm_0")
+                ln(f"{ref}.update_layer_norms.{nt}.feat_norm", f"{ours}.upd_norm_{nt}.LayerNorm_0")
+        for j in range(dyn.get("n_noise_gvps", 3)):
+            gvp(f"dynamics.noise_predictor.noise_predictor.gvps.{j}", f"dynamics.noise_predictor.gvp{j}")
+        put("dynamics.noise_predictor.noise_predictor.to_scalar_output.weight",
+            "dynamics.noise_predictor.to_scalar_output.kernel", True)
+        put("dynamics.noise_predictor.noise_predictor.to_scalar_output.bias",
+            "dynamics.noise_predictor.to_scalar_output.bias")
+    if cfg.rec_encoder_type != "learned":
+        return sd
+    enc = cfg.rec_encoder
+    if cfg.architecture == "egnn":
+        for i in range(enc.get("n_convs", 6)):
+            ref, e = f"rec_encoder.rec_convs.{i}", f"encoder.rec_conv{i}.edge_rr"
+            first_layer(f"{ref}.edge_mlp", e, "edge")
+            put(f"{ref}.edge_mlp.2.weight", f"{e}.edge_lin2_w", True)
+            put(f"{ref}.edge_mlp.2.bias", f"{e}.edge_lin2_b")
+            put(f"{ref}.soft_attention.0.weight", f"{e}.attn_w", True)
+            put(f"{ref}.soft_attention.0.bias", f"{e}.attn_b")
+            if not enc.get("fix_pos", False):
+                first_layer(f"{ref}.coord_mlp", e, "coord")
+                put(f"{ref}.coord_mlp.2.weight", f"{e}.coord_out_w", True)
+            mlp(f"{ref}.node_mlp", f"encoder.rec_conv{i}.node_mlp")
+            if enc.get("norm", False):
+                ln(f"{ref}.layer_norm", f"encoder.rec_conv{i}.LayerNorm_0")
+        put("rec_encoder.keypoint_embedding.0.weight", "encoder.keypoint_embedding.kernel", True)
+        put("rec_encoder.keypoint_embedding.0.bias", "encoder.keypoint_embedding.bias")
+        put("rec_encoder.rec_kp_conv.fc_src.weight", "encoder.rk_fc_src.kernel", True)
+        put("rec_encoder.rec_kp_conv.fc_dst.weight", "encoder.rk_fc_dst.kernel", True)
+        put("rec_encoder.rec_kp_conv.kp_feature_mlp.0.weight", "encoder.kp_feature_mlp.kernel", True)
+        put("rec_encoder.rec_kp_conv.kp_feature_mlp.0.bias", "encoder.kp_feature_mlp.bias")
+        if enc.get("norm", False):
+            ln("rec_encoder.rec_kp_conv.layer_norm", "encoder.kp_feature_norm")
+        return sd
+    mlp("rec_encoder.scalar_embed", "encoder.scalar_embed")
+    ln("rec_encoder.scalar_norm", "encoder.scalar_norm")
+    for kind, n in (("rr", enc.get("n_rr_convs", 3)), ("rk", enc.get("n_rk_convs", 2))):
+        for i in range(n):
+            ref, ours = f"rec_encoder.{kind}_conv_layers.{i}", f"encoder.{kind}_conv{i}"
+            for j in range(enc.get("n_message_gvps", 1)):
+                gvp(f"{ref}.edge_message.{j}", f"{ours}.edge.message.gvp{j}")
+            for j in range(enc.get("n_update_gvps", 1)):
+                gvp(f"{ref}.node_update.{j}", f"{ours}.update.gvp{j}")
+            ln(f"{ref}.message_layer_norm.feat_norm", f"{ours}.message_norm.LayerNorm_0")
+            ln(f"{ref}.update_layer_norm.feat_norm", f"{ours}.update_norm.LayerNorm_0")
+    ki = "rec_encoder.keypoint_initializer"
+    put(f"{ki}.keypoint_embedding.0.weight", "encoder.keypoint_embedding.kernel", True)
+    put(f"{ki}.keypoint_embedding.0.bias", "encoder.keypoint_embedding.bias")
+    ln(f"{ki}.keypoint_embedding.2", "encoder.keypoint_embedding_norm")
+    put(f"{ki}.src_net.weight", "encoder.src_net.kernel", True)
+    put(f"{ki}.dst_net.weight", "encoder.dst_net.kernel", True)
+    return sd
+
+
+def checkpoint_phase(cfg, params_path, tmp, overrides):
+    """Phase 10 (b): a trained archive in the upstream state_dict layout,
+    written with torch.save and read back with torch.load, through the port's
+    convert_reference_checkpoint into a model built with the executed-
+    semantics overrides: every leaf equal bitwise, none missing or extra."""
+    from kpdiff_tpu_torch.utils.params_io import flatten_tree
+    from kpdiff_tpu_torch.utils.torch_import import convert_reference_checkpoint
+
+    flat = read_keystr_npz(params_path)
+    cfg = copy.deepcopy(cfg)
+    for section, values in overrides.items():
+        cfg[section].update(values)
+    model = model_from_config(cfg, device="cpu")
+    sd = to_reference_state_dict(flat, model)
+    path = Path(tmp) / "model.pt"
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}, path)
+    loaded = {k: v.numpy() for k, v in torch.load(path, map_location="cpu").items()}
+    tree = convert_reference_checkpoint(loaded, model)
+    got = flatten_tree(tree)
+    bad = sorted(set(got) ^ set(flat)) + [k for k in flat if k in got and not (
+        got[k].dtype == flat[k].dtype and got[k].shape == flat[k].shape and np.array_equal(got[k], flat[k]))]
+    if bad:
+        raise RuntimeError(f"{params_path}: reference-layout round trip differs at {bad[:8]} ({len(bad)})")
+    load_params(model, tree)
+    for name, p in model.named_parameters():
+        if not np.array_equal(p.detach().numpy(), flat[name]):
+            raise RuntimeError(f"{params_path}: {name} changed on load")
+    n = sum(v.size for v in flat.values())
+    print(f"checkpoint {params_path}: {len(sd)} upstream keys -> {len(flat)} leaves ({n:,} values), every leaf "
+          f"equal bitwise through torch.save/torch.load and convert_reference_checkpoint ({path.stat().st_size:,} "
+          f"bytes)", flush=True)
+    return dict(upstream_keys=len(sd), leaves=len(flat), values=int(n))
+
+
+def graph_option_phase(cfg, flat, seed, dev, label, overrides, check_steps, kernel_rows):
+    """Phase 10 (c): the trained flagship with the upstream's graph options
+    (`overrides` of its dynamics section, set in memory), batch REF_BATCH,
+    ligand bucket REF_BUCKET, encode -> compact_kk -> a REF_K chain under
+    ChainLog; with check_steps a chain of that many steps with every launch
+    against the plain version. Appends the first launch at each (B, Ns, Nd,
+    H) to kernel_rows. Returns the record and the chain's path."""
+    cfg = copy.deepcopy(cfg)
+    cfg["dynamics"].update(overrides)
+    pad = PaddingConfig.from_config(cfg)
+    model = model_from_config(cfg, device=dev, seed=seed)
+    load_params(model, flat)
+    model.eval()
+    cpx = synthetic_batch(seed, batch=REF_BATCH, n_rec_pad=pad.n_rec, n_lig_pad=REF_BUCKET, n_rec_feat=10,
+                          n_lig_feat=10, n_kp=pad.n_kp, kp_feat_dim=model.cfg.rec_nf, n_ip_pad=pad.n_ip,
+                          min_rec=min(260, pad.n_rec), min_lig=min(18, REF_BUCKET - 2), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    seen, errs = {}, []
+    real_wrapper = egnn_mod.egnn_edge_dense
+
+    def recording(*a, **kw):
+        key = (int(a[0].shape[0]), int(a[0].shape[1]), int(a[1].shape[1]), int(a[0].shape[2]))
+        if key not in seen:
+            seen[key] = (tuple(x.clone() if torch.is_tensor(x) else x for x in a), kw["compute_dtype"])
+        return real_wrapper(*a, **kw)
+
+    def checking(*a, **kw):
+        got = recording(*a, **kw)
+        errs.append(rel_err(got, egnn_edge.egnn_edge_dense_plain(*a, **kw)))
+        return got
+
+    egnn_mod.egnn_edge_dense = recording
+    try:
+        with torch.no_grad():
+            enc, kk = model.encode(cpx)
+            kk = model.compact_kk(enc, kk)
+            model.sample(enc, kk, sample_steps=2, generator=gen)  # warm-up
+        with ChainLog() as log, torch.no_grad():
+            t0 = time.perf_counter()
+            out = model.sample(enc, kk, sample_steps=REF_K, generator=gen)
+            sync()
+            chain_s = time.perf_counter() - t0
+        if check_steps:
+            egnn_mod.egnn_edge_dense = checking
+            with ChainLog() as check_log, torch.no_grad():
+                model.sample(enc, kk, sample_steps=check_steps, generator=gen)
+    finally:
+        egnn_mod.egnn_edge_dense = real_wrapper
+    for k, shape in (("lig_x", (REF_BATCH, REF_BUCKET, 3)), ("lig_h", (REF_BATCH, REF_BUCKET, 10))):
+        if tuple(out[k].shape) != shape or not torch.isfinite(out[k]).all():
+            raise RuntimeError(f"{label}: {k} has shape {tuple(out[k].shape)} or is not finite")
+    path = log.check(f"{label} (kk {kk_layout(kk)})")
+    rec = dict(overrides=overrides, chain_s=chain_s, ms_per_step=chain_s / REF_K * 1e3, **path)
+    if check_steps:
+        check = check_log.check(f"{label}, {check_steps}-step chain against the plain version")
+        worst = max(errs)
+        print(f"  {label}: {len(errs)} launches each against the plain version: max_rel_err {worst:.3e} "
+              f"(tolerance {TOL[torch.bfloat16]:.0e})", flush=True)
+        if not worst <= TOL[torch.bfloat16] or len(errs) != check["launches"]:
+            raise RuntimeError(f"{label}: launches differ from the plain version ({worst:.3e}, {len(errs)} checked)")
+        rec["checked"] = dict(max_rel_err=worst, **check)
+    print(f"  {label}: K={REF_K} chain at batch {REF_BATCH}, bucket {REF_BUCKET}: {chain_s:.3f} s "
+          f"({rec['ms_per_step']:.3f} ms/step), {path['launches_per_step']:g} launches a step", flush=True)
+    kernel_rows.extend((label, key, a, cd) for key, (a, cd) in seen.items())
+    del model, enc, kk, out
+    return rec, path
+
+
+def block_rr_recall(x, mask, cutoff, tile):
+    """Share of the rr radius graph's edges that the banded block windows
+    over the Morton-sorted points hold."""
+    perm = spatial_sort_permutation(x, mask)
+    xs, ms = torch.take_along_dim(x, perm[..., None], dim=1), torch.take_along_dim(mask, perm, dim=1)
+    block = int(block_radius_adjacency(xs, ms, cutoff, tile).sum())
+    exact = int(dense_radius_adjacency(x, mask, x, mask, cutoff, exclude_self=True).sum())
+    return block / max(exact, 1)
+
+
+def encoder_times(cfgs, seed, dev):
+    """Phase 10 (c): each learned encoder with rr_layout nbr and block at
+    batch REF_BATCH under no_grad, median ms of ENCODER_REPEATS calls on CUDA
+    events after a warm-up; no kernel launches (the encoders never take it).
+    cfgs: {name: (config, keystr npz)}."""
+    rows = {}
+    for name, (cfg0, params) in cfgs.items():
+        section = "rec_encoder_gvp" if "rec_encoder_gvp" in cfg0 else "rec_encoder"
+        pad = PaddingConfig.from_config(cfg0)
+        kp = {}
+        for layout in ("nbr", "block"):
+            cfg = copy.deepcopy(cfg0)
+            cfg[section]["rr_layout"] = layout
+            model = model_from_config(cfg, device=dev, seed=seed)
+            load_params(model, read_keystr_npz(params))
+            model.eval()
+            n_rec_feat = resolve_feature_sizes(cfg)[0]
+            cpx = synthetic_batch(seed, batch=REF_BATCH, n_rec_pad=pad.n_rec, n_lig_pad=REF_BUCKET,
+                                  n_rec_feat=n_rec_feat, n_lig_feat=10, n_kp=pad.n_kp, kp_feat_dim=model.cfg.rec_nf,
+                                  kp_vec_dim=model.kp_vec_dim, n_ip_pad=pad.n_ip, min_rec=min(260, pad.n_rec),
+                                  min_lig=min(18, REF_BUCKET - 2), device=dev)
+            sync()
+            egnn_edge.launches = 0
+            ms = []
+            with torch.no_grad():
+                enc, _ = model.encode(cpx)  # warm-up
+                for _ in range(ENCODER_REPEATS):
+                    if DEVICE == "cuda":
+                        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                        start.record()
+                        enc, _ = model.encode(cpx)
+                        end.record()
+                        torch.cuda.synchronize()
+                        ms.append(start.elapsed_time(end))
+                    else:
+                        t0 = time.perf_counter()
+                        enc, _ = model.encode(cpx)
+                        ms.append((time.perf_counter() - t0) * 1e3)
+            sync()
+            if egnn_edge.launches or not (torch.isfinite(enc.kp_x).all() and torch.isfinite(enc.kp_h).all()):
+                raise RuntimeError(f"{name} encoder {layout}: {egnn_edge.launches} launches or non-finite keypoints")
+            kp[layout], cpx_x, cpx_mask = enc.kp_x, cpx.rec_x, cpx.rec_mask
+            rows[f"{name}_{layout}"] = dict(median_ms=statistics.median(ms), ms=ms, batch=REF_BATCH, n_rec=pad.n_rec)
+            del model, enc, cpx
+        shift = float((kp["block"] - kp["nbr"]).norm(dim=-1).max())
+        recall = block_rr_recall(cpx_x, cpx_mask, cfg["graph"]["graph_cutoffs"]["rr"],
+                                 choose_tile(pad.n_rec, cfg[section].get("rr_block_size", 64)))
+        rows[f"{name}_block"].update(max_kp_shift_vs_nbr=shift, rr_edge_recall=recall)
+        print(f"  encoder {name} at batch {REF_BATCH}, n_rec {pad.n_rec}: nbr {rows[f'{name}_nbr']['median_ms']:.3f} "
+              f"ms, block {rows[f'{name}_block']['median_ms']:.3f} ms (median of {ENCODER_REPEATS}, "
+              f"{'CUDA events' if DEVICE == 'cuda' else 'host clock'}); the block windows hold {recall:.4f} of the "
+              f"rr radius edges; block keypoints at most {shift:.3f} from nbr's (reported)", flush=True)
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--params", default=PARAMS, help=f"keystr npz of trained weights (default: {PARAMS})")
@@ -1165,6 +1616,36 @@ def main():
     del gvp_model
     phase("families", t0)
 
+    # ---- 10. the reference user: raw data -> process -> train -> sample; upstream checkpoints; graph options
+    t0 = time.perf_counter()
+    ref_cfg = load_config(CONFIG)
+    with tempfile.TemporaryDirectory() as ref_tmp:
+        raw_record, ref_paths = raw_data_phase(ref_cfg, args.seed, ref_tmp)
+        checkpoints = {args.params: checkpoint_phase(ref_cfg, args.params, ref_tmp, EXECUTED),
+                       GVP_PARAMS: checkpoint_phase(gvp_cfg, GVP_PARAMS, ref_tmp,
+                                                    dict(rec_encoder_gvp=dict(attn_semantics="executed")))}
+    flat = read_keystr_npz(args.params)
+    options, option_inputs = {}, []
+    for label, over, check, per_step in (
+            ("default_knn_pairs", {}, 0, 12),  # the config's own kl_k 5 pairs and radius ll: the baseline
+            ("kl_radius_intent", dict(kl_k=0, z_semantics="intent"), REF_CHECK_STEPS, 24),
+            ("kl_radius_executed", dict(kl_k=0, z_semantics="executed"), REF_CHECK_STEPS, 24),
+            ("ll_knn16", dict(ll_k=16), 0, 12)):
+        options[label], path = graph_option_phase(ref_cfg, flat, args.seed, dev, label, over, check, option_inputs)
+        if path["launches_per_step"] != per_step:
+            raise RuntimeError(f"{label}: {path['launches_per_step']} launches a step, expected {per_step}")
+        ref_paths[f"ref_{label}"] = path["launches"]
+        if check:
+            ref_paths[f"ref_{label}_checked"] = options[label]["checked"]["launches"]
+    del flat
+    option_rows = [measure(a, cd, f"ref_{label}_b{k[0]}_ns{k[1]}_nd{k[2]}_h{k[3]}")
+                   for label, k, a, cd in option_inputs if label in ("kl_radius_intent", "ll_knn16")]
+    del option_inputs
+    encoder_rows = encoder_times({"egnn_40kp": (ref_cfg, args.params), "gvp_40kp": (gvp_cfg, GVP_PARAMS)},
+                                 args.seed, dev)
+    torch.cuda.empty_cache()
+    phase("reference_user", t0)
+
     total = time.perf_counter() - t_all
     print(f"total wall: {total:.3f} s", flush=True)
     head = main_rows.get("ll48") or next(iter(main_rows.values()))
@@ -1176,15 +1657,17 @@ def main():
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
         "launches_by_path": dict(sample=main_launches, **{k: v["launches"] for k, v in serve_paths.items()},
                                  **train_paths, **{k: v["launches"] for k, v in front_paths.items()},
-                                 quality=quality_path["launches"], **family_paths),
-        "shapes": list(main_rows.values()) + family_rows + shape_rows,
+                                 quality=quality_path["launches"], **family_paths, **ref_paths),
+        "shapes": list(main_rows.values()) + family_rows + option_rows + shape_rows,
     }]}
     record = dict(card=card, device=torch.cuda.get_device_name(0), weights=weights, slice=slice_rows,
                   mixture_s_per_ligand=mixture, chain_step_max_rel_err=chain_step_err,
                   chain_free_max_rel_diff=chain_free, chain_one_ulp_max_rel_diff=chain_ulp, serve=serve_record,
                   train=train_record, frontends=front_record, quality=quality_record,
                   paths={**serve_paths, **front_paths, "quality": quality_path}, families=family_records,
-                  quality_gvp=gvp_quality, total_wall_s=total, **kernels)
+                  quality_gvp=gvp_quality, reference_user=dict(raw=raw_record, checkpoints=checkpoints,
+                                                                graph_options=options, encoders=encoder_rows),
+                  total_wall_s=total, **kernels)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1))

@@ -184,7 +184,8 @@ def main(argv=None):
     t0 = time.time()
     done = False
     while not done:
-        for batch in prefetch(train_loader.epoch(), depth=2):
+        n_batches = 0
+        for n_batches, batch in enumerate(prefetch(train_loader.epoch(), depth=2), start=1):
             epoch_exact = state.step / iters_per_epoch
             if epoch_exact >= epochs:
                 done = True
@@ -248,6 +249,9 @@ def main(argv=None):
             dropped_warned = True
             print(f"  WARNING: {train_loader.n_dropped}/{len(train_ds)} training complexes exceed padding "
                   f"capacity (n_lig={pad.n_lig}, n_rec={pad.n_rec}, n_ip={pad.n_ip}) and were dropped", flush=True)
+        if not done and n_batches == 0:  # an epoch without a batch would loop forever
+            raise ValueError(f"the training split gives no batch of {batch_size}: {len(train_ds)} complexes, "
+                             f"{train_loader.n_dropped} beyond the padding capacity")
     if profiler is not None:
         profiler.stop()
 

@@ -88,7 +88,7 @@ def dynamics_from_config(cfg: DiffusionConfig, gen: torch.Generator):
         use_tanh=dyn.get("use_tanh", False), message_norm=dyn.get("message_norm", 1),
         update_kp_feat=dyn.get("update_kp_feat", False), norm=dyn.get("norm", False),
         ll_k=dyn.get("ll_k", 0), kl_k=dyn.get("kl_k", 0),
-        ll_cutoff=cfg.graph_cutoffs.get("ll", 9.0),
+        ll_cutoff=cfg.graph_cutoffs.get("ll", 9.0), kl_cutoff=cfg.graph_cutoffs.get("kl", 8.0),
         compute_dtype=dyn.get("compute_dtype", "float32"), z_semantics=dyn.get("z_semantics", "intent"),
         remat=dyn.get("remat", False),
     )

@@ -1,20 +1,25 @@
 """EGNN noise-prediction dynamics (kpdiff_tpu/models/dynamics_egnn.py:70-365).
 
-Ligand-ligand edges are a dense radius grid and keypoint-ligand edges a kNN
-pair list, both rebuilt from current positions on every call; the kk edge
-structure comes in from the encoder, dense (B, K, K), a neighbor list
-(idx, valid) or blocks (below). The timestep is appended as a feature channel, so the working
-width is hidden_nf + 1. The kk structure may also be the banded block
-layout {'block': adj (B, nt, 3 * tile, tile)} over spatially sorted
-keypoints (kk_layout 'block', the all-atom configs): each tile of `tile`
-destinations against the 3 * tile sources of its window, reshaped to a
-dense (B * nt, 3 * tile, tile) grid.
+Ligand-ligand edges are a dense grid, the radius graph or, with ll_k > 0,
+each ligand atom's ll_k nearest ligand atoms. Keypoint-ligand edges are,
+with kl_k > 0, a kNN pair list (each keypoint's kl_k nearest ligand atoms)
+and, with kl_k == 0, the dense radius grid (B, K, Nl) on the kl cutoff, lk
+its transpose. All are rebuilt from current positions on every call; the kk
+edge structure comes in from the encoder, dense (B, K, K), a neighbor list
+(idx, valid) or blocks (below). The timestep is appended as a feature
+channel, so the working width is hidden_nf + 1. The kk structure may also
+be the banded block layout {'block': adj (B, nt, 3 * tile, tile)} over
+spatially sorted keypoints (kk_layout 'block', the all-atom configs): each
+tile of `tile` destinations against the 3 * tile sources of its window,
+reshaped to a dense (B * nt, 3 * tile, tile) grid.
 
-Every dense edge grid (ll, kk while dense, and the block windows) goes
-through the CUDA edge kernel under no_grad, as the JAX package's sampler
-does with `dynamics.use_pallas_sampling` for ll and dense kk; the JAX
-package's block branch never takes its Pallas kernel, the port's does.
-While autograd records they take the kernel's plain version. `remat`
+Every dense edge grid (ll, kl and lk while dense, kk while dense, and the
+block windows) goes through the CUDA edge kernel under no_grad, as the JAX
+package's sampler does with `dynamics.use_pallas_sampling` for ll, kl, lk
+and dense kk; the JAX package's block branch never takes its Pallas kernel,
+the port's does. The kl and lk modules are named `edge_kl` and `edge_lk`
+under either layout, with the same parameters, so one archive loads under
+both. While autograd records they take the kernel's plain version. `remat`
 recomputes each conv layer in the backward pass (torch.utils.checkpoint),
 storing only the layer boundaries.
 """
@@ -28,24 +33,31 @@ from torch.utils.checkpoint import checkpoint
 
 from kpdiff_tpu_torch.models.egnn import EGNNEdgeDense, EGNNEdgeKNNPairs, EGNNEdgeNbrList, NodeUpdate
 from kpdiff_tpu_torch.models.nn import MLP
-from kpdiff_tpu_torch.ops.neighbors import dense_radius_adjacency, knn_indices
+from kpdiff_tpu_torch.ops.neighbors import dense_knn_adjacency, dense_radius_adjacency, knn_indices
 from kpdiff_tpu_torch.ops.spatial import block_windows
 
 
 class EGNNConvLayer(nn.Module):
-    """One heterograph EGNN layer: dense ll, kNN-pair kl (and lk, kk with
-    update_kp_feat)."""
+    """One heterograph EGNN layer: dense ll, kl as kNN pairs or a dense grid
+    (dense_kl), and lk, kk with update_kp_feat."""
 
     def __init__(self, hidden_size: int, gen: torch.Generator, use_tanh: bool, update_kp_feat: bool,
-                 norm: bool, dtype: str = "float32"):
+                 norm: bool, dtype: str = "float32", dense_kl: bool = False):
         super().__init__()
         h = hidden_size
         self.update_kp_feat = update_kp_feat
+        self.dense_kl = dense_kl
         dense = dict(use_tanh=use_tanh, coords_range=10.0, dtype=dtype)
+
+        def kl_module(anchor_is_src):
+            if dense_kl:
+                return EGNNEdgeDense(h, h, gen, **dense)
+            return EGNNEdgeKNNPairs(h, h, gen, anchor_is_src=anchor_is_src, use_tanh=use_tanh, dtype=dtype)
+
         self.edge_ll = EGNNEdgeDense(h, h, gen, **dense)
-        self.edge_kl = EGNNEdgeKNNPairs(h, h, gen, anchor_is_src=True, use_tanh=use_tanh, dtype=dtype)
+        self.edge_kl = kl_module(True)
         if update_kp_feat:
-            self.edge_lk = EGNNEdgeKNNPairs(h, h, gen, anchor_is_src=False, use_tanh=use_tanh, dtype=dtype)
+            self.edge_lk = kl_module(False)
             # kk dispatches on its structure: a dense adjacency goes to edge_kk,
             # a neighbor list to kk_nbr, which shares edge_kk's parameters
             self.edge_kk = EGNNEdgeDense(h, h, gen, **dense)
@@ -76,10 +88,16 @@ class EGNNConvLayer(nn.Module):
             agg_x[dst] = agg_x[dst] + out[1]
 
         add("lig", self.edge_ll(h["lig"], h["lig"], x["lig"], x["lig"], edges["ll"]))
-        idx, valid = edges["kl_pairs"]
-        add("lig", self.edge_kl(h["kp"], h["lig"], x["kp"], x["lig"], idx, valid))
+        if self.dense_kl:
+            add("lig", self.edge_kl(h["kp"], h["lig"], x["kp"], x["lig"], edges["kl"]))
+        else:
+            idx, valid = edges["kl_pairs"]
+            add("lig", self.edge_kl(h["kp"], h["lig"], x["kp"], x["lig"], idx, valid))
         if self.update_kp_feat:
-            add("kp", self.edge_lk(h["kp"], h["lig"], x["kp"], x["lig"], idx, valid))
+            if self.dense_kl:
+                add("kp", self.edge_lk(h["lig"], h["kp"], x["lig"], x["kp"], edges["lk"]))
+            else:
+                add("kp", self.edge_lk(h["kp"], h["lig"], x["kp"], x["lig"], idx, valid))
             kk = edges["kk"]
             if isinstance(kk, dict):
                 add("kp", self._block_kk(h["kp"], x["kp"], kk["block"]))
@@ -108,18 +126,14 @@ class EGNNDynamics(nn.Module):
     def __init__(self, atom_nf: int, rec_nf: int, gen: torch.Generator, n_layers: int = 6,
                  hidden_nf: int = 256, use_tanh: bool = False, message_norm: float = 1.0,
                  update_kp_feat: bool = False, norm: bool = False, ll_k: int = 0, kl_k: int = 0,
-                 ll_cutoff: float = 9.0, compute_dtype: str = "float32",
+                 ll_cutoff: float = 9.0, kl_cutoff: float = 8.0, compute_dtype: str = "float32",
                  z_semantics: str = "intent", remat: bool = False):
         super().__init__()
-        if ll_k > 0:
-            raise NotImplementedError("ll_k > 0 (kNN ll edges) is not ported yet")
-        if kl_k <= 0:
-            raise NotImplementedError("kl_k == 0 (dense radius kl edges) is not ported yet")
         self.n_layers = n_layers
         self.message_norm = message_norm
         self.update_kp_feat = update_kp_feat
-        self.kl_k = kl_k
-        self.ll_cutoff = ll_cutoff
+        self.ll_k, self.kl_k = ll_k, kl_k
+        self.ll_cutoff, self.kl_cutoff = ll_cutoff, kl_cutoff
         self.z_semantics = z_semantics
         self.remat = remat
         self.lig_encoder = MLP(atom_nf, [64, hidden_nf], ["silu", "silu"], gen)
@@ -128,7 +142,7 @@ class EGNNDynamics(nn.Module):
         for i in range(n_layers):
             self.add_module(f"conv{i}", EGNNConvLayer(
                 hidden_nf + 1, gen, use_tanh=use_tanh, update_kp_feat=update_kp_feat, norm=norm,
-                dtype=compute_dtype))
+                dtype=compute_dtype, dense_kl=kl_k <= 0))
         self.lig_decoder = MLP(hidden_nf, [2 * atom_nf, atom_nf], ["silu", ""], gen)
 
     def forward(self, lig_x, lig_h, lig_mask, kp_x, kp_h, kp_mask, t, kk_edges=None):
@@ -141,13 +155,21 @@ class EGNNDynamics(nn.Module):
         lig_feat = torch.cat([lig_feat, t_col.expand(b, nl, 1)], dim=-1) * lig_mask[..., None]
         kp_feat = torch.cat([kp_feat, t_col.expand(b, k, 1).to(kp_feat.dtype)], dim=-1) * kp_mask[..., None]
 
-        ll = dense_radius_adjacency(lig_x, lig_mask, lig_x, lig_mask, self.ll_cutoff, exclude_self=True)
+        if self.ll_k > 0:
+            ll = dense_knn_adjacency(lig_x, lig_mask, lig_x, lig_mask, self.ll_k, per="dst", exclude_self=True)
+        else:
+            ll = dense_radius_adjacency(lig_x, lig_mask, lig_x, lig_mask, self.ll_cutoff, exclude_self=True)
         edges: Dict[str, object] = {"ll": ll}
-        # per-keypoint k nearest ligand atoms as an explicit pair list
-        kl_idx, _dist, kl_valid = knn_indices(lig_x, lig_mask, kp_x, kp_mask, self.kl_k)
-        kl_valid = kl_valid & kp_mask[:, :, None]
-        edges["kl_pairs"] = (kl_idx, kl_valid)
-        e_kl = torch.sum(kl_valid, dim=(1, 2))
+        if self.kl_k > 0:
+            # per-keypoint k nearest ligand atoms as an explicit pair list
+            kl_idx, _dist, kl_valid = knn_indices(lig_x, lig_mask, kp_x, kp_mask, self.kl_k)
+            kl_valid = kl_valid & kp_mask[:, :, None]
+            edges["kl_pairs"] = (kl_idx, kl_valid)
+            e_kl = torch.sum(kl_valid, dim=(1, 2))
+        else:
+            edges["kl"] = dense_radius_adjacency(kp_x, kp_mask, lig_x, lig_mask, self.kl_cutoff)
+            edges["lk"] = edges["kl"].transpose(1, 2)
+            e_kl = torch.sum(edges["kl"], dim=(1, 2))
         if self.update_kp_feat:
             if kk_edges is None:
                 raise ValueError("kk_edges required when update_kp_feat=True")

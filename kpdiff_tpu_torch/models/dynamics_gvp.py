@@ -7,10 +7,12 @@ kk edge types. message_norm: 'mean' averages over valid incoming edges,
 0 divides the sums by the average in-degree + 1, a number divides the sums
 by it.
 
-Edges: ll is a dense radius grid rebuilt every call, kl and lk a kNN pair
-list (`PairList`, kl_k per keypoint), kk the encoder's structure, dense
-(B, K, K), a neighbor list (idx, valid) or the banded block layout
-{'block': adj}. Every GVP runs in plain PyTorch: there is no TPU kernel on
+Edges: ll is a dense grid rebuilt every call (the radius graph, or with
+ll_k > 0 each ligand atom's ll_k nearest ligand atoms), kl and lk a kNN
+pair list (`PairList`, kl_k per keypoint) or with kl_k == 0 the dense
+radius grid on the kl cutoff and its transpose, kk the encoder's
+structure, dense (B, K, K), a neighbor list (idx, valid) or the banded
+block layout {'block': adj}. Every GVP runs in plain PyTorch: there is no TPU kernel on
 this path. Dropout (training only) draws its masks from a torch.Generator
 before each conv, so that `remat` (torch.utils.checkpoint per conv)
 recomputes the backward with the same masks.
@@ -34,7 +36,7 @@ from kpdiff_tpu_torch.models.gvp import (
     gvp_dropout_masks,
 )
 from kpdiff_tpu_torch.models.nn import LayerNorm, TorchLinear
-from kpdiff_tpu_torch.ops.neighbors import dense_radius_adjacency, knn_indices
+from kpdiff_tpu_torch.ops.neighbors import dense_knn_adjacency, dense_radius_adjacency, knn_indices
 from kpdiff_tpu_torch.ops.spatial import block_windows
 
 
@@ -179,17 +181,13 @@ class GVPDynamics(nn.Module):
                  dropout: float = 0.0, compute_dtype: str = "float32", kk_layout: str = "dense",
                  kk_block_size: int = 64, remat: bool = False):
         super().__init__()
-        if ll_k > 0:
-            raise NotImplementedError("ll_k > 0 (kNN ll edges) is not ported yet")
-        if kl_k <= 0:
-            raise NotImplementedError("kl_k == 0 (dense radius kl edges) is not ported yet")
         # kk_layout and kk_block_size are read by KeypointDiffusion when it builds kk
         H = n_hidden_scalars
         self.vector_size = vector_size
         self.n_convs = n_convs
         self.update_kp = update_kp
-        self.kl_k = kl_k
-        self.ll_cutoff = ll_cutoff
+        self.ll_k, self.kl_k = ll_k, kl_k
+        self.ll_cutoff, self.kl_cutoff = ll_cutoff, kl_cutoff
         self.remat = remat
         self.lig_enc = TorchLinear(n_lig_scalars + 1, H, gen)
         self.kp_enc = TorchLinear(n_kp_scalars + 1, H, gen)
@@ -217,14 +215,20 @@ class GVPDynamics(nn.Module):
         if kp_v is None:
             kp_v = torch.zeros((b, k, self.vector_size, 3), dtype=kp_s.dtype, device=kp_s.device)
 
-        ll = dense_radius_adjacency(lig_x, lig_mask, lig_x, lig_mask, self.ll_cutoff, exclude_self=True)
-        kl_idx, _dist, kl_valid = knn_indices(lig_x, lig_mask, kp_x, kp_mask, self.kl_k)
-        kl = PairList(kl_idx, kl_valid & kp_mask[:, :, None])
+        if self.ll_k > 0:
+            ll = dense_knn_adjacency(lig_x, lig_mask, lig_x, lig_mask, self.ll_k, per="dst", exclude_self=True)
+        else:
+            ll = dense_radius_adjacency(lig_x, lig_mask, lig_x, lig_mask, self.ll_cutoff, exclude_self=True)
+        if self.kl_k > 0:
+            kl_idx, _dist, kl_valid = knn_indices(lig_x, lig_mask, kp_x, kp_mask, self.kl_k)
+            kl = PairList(kl_idx, kl_valid & kp_mask[:, :, None])
+        else:
+            kl = dense_radius_adjacency(kp_x, kp_mask, lig_x, lig_mask, self.kl_cutoff)
         adj = {"ll": ll, "kl": kl}
         if self.update_kp:
             if kk_edges is None:
                 raise ValueError("kk_edges required when update_kp=True")
-            adj["lk"] = kl
+            adj["lk"] = kl if isinstance(kl, PairList) else kl.transpose(1, 2)
             adj["kk"] = kk_edges
 
         node_data = {"lig": (lig_s, lig_x, lig_v), "kp": (kp_s, kp_x, kp_v)}

@@ -78,24 +78,31 @@ def _coord_scalar(mod, c, cd, use_tanh, coords_range):
 
 class EGNNEdgeDense(_EdgeParams):
     """EGNN messages for one edge type over a dense (B, Ns, Nd) pair grid
-    (kpdiff_tpu/models/egnn.py:118-326), in the configuration of the
-    dynamics' dense edge types: two coord hidden layers, no edge features.
+    (kpdiff_tpu/models/egnn.py:118-326).
 
-    The per-node first-layer projections are f32 matrix products here, as
-    in the JAX package's Pallas path; the per-pair work goes through
-    `ops/cuda/egnn_edge.py`: the CUDA kernel on a CUDA tensor, its plain
-    version on a CPU tensor. Where autograd records (grad enabled and a
-    parameter or input that requires grad) the module runs the plain
-    version on its parameters instead, so that training gets gradients;
-    sampling and encoding run under no_grad and take the kernel.
+    In the dynamics' configuration (two coord hidden layers, coordinates
+    computed, no edge features) the per-node first-layer projections are f32
+    matrix products here, as in the JAX package's Pallas path, and the
+    per-pair work goes through `ops/cuda/egnn_edge.py`: the CUDA kernel on a
+    CUDA tensor, its plain version on a CPU tensor. Where autograd records
+    (grad enabled and a parameter or input that requires grad) the module
+    runs the plain version on its parameters instead, so that training gets
+    gradients; sampling and encoding run under no_grad and take the kernel.
+
+    The encoder's configuration (edge features, one coord hidden layer, or
+    compute_coord=False for fix_pos) never takes the kernel, as the JAX
+    package's `pallas_ok` never does: it runs the JAX package's XLA path in
+    plain PyTorch on every device (`_generic`).
     """
 
     def __init__(self, f_in: int, hidden_size: int, gen: torch.Generator, use_tanh: bool = False,
-                 coords_range: float = 10.0, dtype: str = "float32"):
-        super().__init__(f_in, hidden_size, gen, coord_hidden_layers=2)
+                 coords_range: float = 10.0, coord_hidden_layers: int = 2, compute_coord: bool = True,
+                 edge_feat_size: int = 0, dtype: str = "float32"):
+        super().__init__(f_in, hidden_size, gen, coord_hidden_layers, compute_coord, edge_feat_size)
         self.use_tanh = use_tanh
         self.coords_range = float(coords_range)
         self.cd = compute_dtype(dtype)
+        self.kernel_ok = compute_coord and coord_hidden_layers == 2 and edge_feat_size == 0
         self._pack = None  # (parameter key, kernel weight operands)
 
     def _kernel_weights(self):
@@ -121,7 +128,9 @@ class EGNNEdgeDense(_EdgeParams):
             self._pack = (key, pack)
         return self._pack[1]
 
-    def forward(self, h_src, h_dst, x_src, x_dst, adj):
+    def forward(self, h_src, h_dst, x_src, x_dst, adj, edge_feat=None):
+        if not self.kernel_ok:
+            return self._generic(h_src, h_dst, x_src, x_dst, adj, edge_feat)
         f32 = torch.float32
         hs, hd = h_src.to(f32), h_dst.to(f32)
         xs, xd, adj = x_src.to(f32).contiguous(), x_dst.to(f32).contiguous(), adj.contiguous()
@@ -142,6 +151,32 @@ class EGNNEdgeDense(_EdgeParams):
             hs @ w["coord_w_src"], hd @ w["coord_w_dst"] + w["coord_b"],
             w["w_edij"], w["w_cdij"], w["w2e"], w["b2e"], w["attw"], w["atb"],
             w["w2c"], w["b2c"], w["wout"], xs, xd, adj, **kw)
+
+    def _generic(self, h_src, h_dst, x_src, x_dst, adj, edge_feat=None):
+        """The JAX package's dense XLA path (no split t-channel): pair
+        pre-activations and products in the compute dtype, reductions in f32."""
+        cd, f32 = self.cd, torch.float32
+        diff = torch.where(adj[..., None], x_src[:, :, None, :] - x_dst[:, None, :, :], 0.0)
+        dij = torch.linalg.norm(diff + 1e-30, dim=-1, keepdim=True)  # (B, Ns, Nd, 1)
+        scalars = dij if edge_feat is None else torch.cat([dij, edge_feat.to(dij.dtype)], dim=-1)
+
+        def pair_preact(w_s, w_d, w_dij, bias):
+            return ((h_src.to(cd) @ w_s.to(cd))[:, :, None, :]
+                    + (h_dst.to(cd) @ w_d.to(cd))[:, None, :, :]
+                    + scalars.to(cd) @ w_dij.to(cd)
+                    + bias.to(cd))
+
+        m = F.silu(pair_preact(self.edge_w_src, self.edge_w_dst, self.edge_w_dij, self.edge_b))
+        m = F.silu(m @ self.edge_lin2_w.to(cd) + self.edge_lin2_b.to(cd))
+        gate = _gate(m, self.attn_w, self.attn_b, cd)
+        coeff = adj.to(m.dtype) * gate.to(m.dtype)
+        agg_h = torch.einsum("bsd,bsdh->bdh", coeff.float(), m.float())
+        if not self.compute_coord:
+            return agg_h, torch.zeros_like(x_dst)
+        c = F.silu(pair_preact(self.coord_w_src, self.coord_w_dst, self.coord_w_dij, self.coord_b))
+        scalar = _coord_scalar(self, c, cd, self.use_tanh, self.coords_range)
+        coeff_x = adj.to(f32) * scalar / (dij[..., 0] + 1.0)
+        return agg_h, torch.einsum("bsd,bsdc->bdc", coeff_x, diff)
 
 
 class EGNNEdgeKNNPairs(_EdgeParams):

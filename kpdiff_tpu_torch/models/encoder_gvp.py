@@ -1,8 +1,12 @@
 """Learned GVP receptor encoder: pocket atoms -> K keypoints with scalar and
-vector features (kpdiff_tpu/models/encoder_gvp.py), on `rr_layout: nbr`.
+vector features (kpdiff_tpu/models/encoder_gvp.py).
 
-rr convs run over a capped radius neighbor list, keypoint positions come
-from a masked attention over the pocket atoms, rk convs over each
+rr convs run over a capped radius neighbor list (`rr_layout: nbr`) or, with
+`rr_layout: block`, over banded windows of the Morton-sorted pocket (each
+tile of `choose_tile(n_rec, rr_block_size)` destinations against the 3 *
+tile sources of its window; the pocket stays sorted inside the encoder, as
+in the JAX package); both layouts share the parameters. Keypoint positions
+come from a masked attention over the pocket atoms, rk convs over each
 keypoint's k_closest atoms (or those within kp_rad). Kept from the JAX
 package: separate query and key projections (src_net, dst_net); keypoint
 scalars and vectors start at zero; the message normaliser at message_norm 0
@@ -32,13 +36,21 @@ from kpdiff_tpu_torch.models.gvp import (
 from kpdiff_tpu_torch.models.nn import MLP, LayerNorm, TorchLinear
 from kpdiff_tpu_torch.ops.geometry import masked_mean
 from kpdiff_tpu_torch.ops.neighbors import gather_rows, knn_indices, radius_neighbor_list
+from kpdiff_tpu_torch.ops.spatial import (
+    block_radius_adjacency,
+    block_same_residue,
+    block_windows,
+    choose_tile,
+    spatial_sort_permutation,
+)
 
 _NEG = -1e30
 
 
 class GVPEdgeConvNbr(nn.Module):
-    """Single-edge-type GVP conv over a neighbor list: messages, then a
-    residual update of the destinations (reference gvp.py:170-341)."""
+    """Single-edge-type GVP conv over a neighbor list (idx, valid) or banded
+    block windows (adj,) of one node set: messages, then a residual update
+    of the destinations (reference gvp.py:170-341)."""
 
     def __init__(self, scalar_size: int, vector_size: int, gen: torch.Generator, n_message_gvps: int = 1,
                  n_update_gvps: int = 1, use_dst_feats: bool = False, edge_feat_size: int = 0,
@@ -57,7 +69,18 @@ class GVPEdgeConvNbr(nn.Module):
                 generator: Optional[torch.Generator] = None):
         h_s, x_s, v_s = src
         h_d, x_d, v_d = dst
-        s_msg, v_msg = self.edge.nbr(h_s, v_s, x_s, h_d, v_d, x_d, *edges, edge_feat)
+        if len(edges) == 1:  # block windows; source set == destination set
+            (adj,) = edges
+            b, nt, w, tile = adj.shape
+            n, S, V = h_s.shape[1], h_s.shape[-1], v_s.shape[-2]
+            ef = None if edge_feat is None else edge_feat.reshape(b * nt, w, tile, -1)
+            s_msg, v_msg = self.edge.dense(
+                block_windows(h_s, tile).reshape(b * nt, w, S), block_windows(v_s, tile).reshape(b * nt, w, V, 3),
+                block_windows(x_s, tile).reshape(b * nt, w, 3), h_d.reshape(b * nt, tile, S),
+                v_d.reshape(b * nt, tile, V, 3), x_d.reshape(b * nt, tile, 3), adj.reshape(b * nt, w, tile), ef)
+            s_msg, v_msg = s_msg.reshape(b, n, S), v_msg.reshape(b, n, V, 3)
+        else:
+            s_msg, v_msg = self.edge.nbr(h_s, v_s, x_s, h_d, v_d, x_d, *edges, edge_feat)
         s_msg = s_msg / z
         v_msg = v_msg / (z[..., None] if torch.is_tensor(z) else z)
         drop = dropout and self.dropout > 0
@@ -83,12 +106,14 @@ class GVPReceptorEncoder(nn.Module):
                  n_update_gvps: int = 1, message_norm: Union[float, str] = 10, use_sameres_feat: bool = False,
                  kp_rad: float = 0.0, k_closest: int = 0, dropout: float = 0.0,
                  graph_cutoffs: Optional[Dict[str, float]] = None, rr_max_neighbors: int = 32,
-                 rr_layout: str = "nbr", compute_dtype: str = "float32", attn_semantics: str = "intent"):
+                 rr_layout: str = "nbr", rr_block_size: int = 64, compute_dtype: str = "float32",
+                 attn_semantics: str = "intent"):
         super().__init__()
         if (kp_rad != 0) == (k_closest != 0):
             raise ValueError("exactly one of kp_rad / k_closest must be non-zero")
-        if rr_layout != "nbr":
-            raise NotImplementedError(f"rr_layout {rr_layout!r} is not ported yet (nbr only)")
+        if rr_layout not in ("nbr", "block"):
+            raise ValueError(f"rr_layout {rr_layout!r}: 'nbr' or 'block'")
+        self.rr_layout, self.rr_block_size = rr_layout, rr_block_size
         F_, K = out_scalar_size, n_keypoints
         self.K, self.F = K, F_
         self.vector_size = vector_size
@@ -131,19 +156,32 @@ class GVPReceptorEncoder(nn.Module):
         x0, mask, res = cpx.rec_x, cpx.rec_mask, cpx.rec_res_idx
         drop = dict(dropout=dropout, generator=generator)
 
-        h = self.scalar_norm(self.scalar_embed(cpx.rec_h)) * mask[..., None]
+        rec_h = cpx.rec_h
+        if self.rr_layout == "block":
+            # the pocket in Morton order from here on (a set: safe)
+            perm = spatial_sort_permutation(x0, mask)
+            x0, rec_h = (torch.take_along_dim(a, perm[..., None], dim=1) for a in (x0, rec_h))
+            mask, res = torch.take_along_dim(mask, perm, dim=1), torch.take_along_dim(res, perm, dim=1)
+        h = self.scalar_norm(self.scalar_embed(rec_h)) * mask[..., None]
         v = torch.zeros((b, nr, self.vector_size, 3), dtype=h.dtype, device=h.device)
 
-        rr_idx, rr_valid = radius_neighbor_list(x0, mask, x0, mask, self.rr_cutoff, self.rr_max_neighbors,
-                                                exclude_self=True)
         edge_feat = None
-        if self.use_sameres_feat:
-            edge_feat = (gather_rows(res, rr_idx) == res[:, :, None]).to(h.dtype)[..., None]
+        if self.rr_layout == "block":
+            tile = choose_tile(nr, self.rr_block_size)
+            adj = block_radius_adjacency(x0, mask, self.rr_cutoff, tile)
+            rr_edges, n_edges = (adj,), torch.sum(adj, dim=(1, 2, 3)).float()
+            if self.use_sameres_feat:
+                edge_feat = block_same_residue(res, tile).to(h.dtype)
+        else:
+            rr_idx, rr_valid = radius_neighbor_list(x0, mask, x0, mask, self.rr_cutoff, self.rr_max_neighbors,
+                                                    exclude_self=True)
+            rr_edges, n_edges = (rr_idx, rr_valid), torch.sum(rr_valid, dim=(1, 2)).float()
+            if self.use_sameres_feat:
+                edge_feat = (gather_rows(res, rr_idx) == res[:, :, None]).to(h.dtype)[..., None]
         n_rec = torch.clamp(torch.sum(mask, dim=1), min=1).float()
-        z = self._z(torch.sum(rr_valid, dim=(1, 2)).float(), n_rec)
+        z = self._z(n_edges, n_rec)
         for i in range(self.n_rr_convs):
-            h, v = getattr(self, f"rr_conv{i}")((h, x0, v), (h, x0, v), (rr_idx, rr_valid), z, mask, edge_feat,
-                                                **drop)
+            h, v = getattr(self, f"rr_conv{i}")((h, x0, v), (h, x0, v), rr_edges, z, mask, edge_feat, **drop)
 
         # keypoint initializer: positions by attention over the pocket atoms
         kp_emb = self.keypoint_embedding_norm(F.silu(self.keypoint_embedding(masked_mean(h, mask, dim=1))))

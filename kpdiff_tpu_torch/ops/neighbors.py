@@ -14,6 +14,7 @@ __all__ = [
     "gather_rows",
     "masked_pair_dist2",
     "dense_radius_adjacency",
+    "dense_knn_adjacency",
     "knn_indices",
     "radius_neighbor_list",
 ]
@@ -37,6 +38,24 @@ def dense_radius_adjacency(x_src, mask_src, x_dst, mask_dst, radius: float,
     """Boolean (B, Ns, Nd): src strictly within `radius` of dst."""
     d2 = masked_pair_dist2(x_src, mask_src, x_dst, mask_dst, exclude_self=exclude_self)
     return d2 < float(radius) ** 2
+
+
+def dense_knn_adjacency(x_src, mask_src, x_dst, mask_dst, k: int, per: str = "dst",
+                        exclude_self: bool = False) -> torch.Tensor:
+    """Boolean (B, Ns, Nd) adjacency from k-nearest selection.
+
+    per='dst': each destination marks its k nearest sources (the ll kNN
+    graph); per='src': each source marks its k nearest destinations. Rows
+    with fewer than k valid partners mark only the valid ones."""
+    if per not in ("dst", "src"):
+        raise ValueError(f"per must be 'dst' or 'src', got {per}")
+    d2 = masked_pair_dist2(x_src, mask_src, x_dst, mask_dst, exclude_self=exclude_self)
+    scores = -d2.transpose(1, 2) if per == "dst" else -d2  # rows choose among the last axis
+    neg_d2, idx = torch.topk(scores, min(k, scores.shape[-1]), dim=-1)
+    valid = neg_d2 > -_INF * 0.5
+    adj = torch.zeros(scores.shape, dtype=torch.bool, device=scores.device)
+    adj.scatter_(-1, idx, valid)
+    return adj.transpose(1, 2) if per == "dst" else adj
 
 
 def knn_indices(x_src, mask_src, x_dst, mask_dst, k: int):

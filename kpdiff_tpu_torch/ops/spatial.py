@@ -76,3 +76,11 @@ def block_radius_adjacency(x: torch.Tensor, mask: torch.Tensor, radius: float, t
     j = torch.arange(tile, device=x.device)
     eye[j + tile, j] = True
     return (d2 < float(radius) ** 2) & valid & ~eye[None, None]
+
+
+def block_same_residue(res: torch.Tensor, tile: int) -> torch.Tensor:
+    """The same-residue edge feature on the block windows: (B, nt, 3 * tile,
+    tile, 1) float32, 1 where a window row and its destination share a
+    residue index (kpdiff_tpu/models/encoder_egnn.py:187-191)."""
+    rw, rt = block_windows(res, tile), res.reshape(res.shape[0], -1, tile)
+    return (rw[:, :, :, None] == rt[:, :, None, :]).float()[..., None]

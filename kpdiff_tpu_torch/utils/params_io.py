@@ -5,7 +5,9 @@ Two key styles name the same leaves:
     `['dynamics']['conv0']['edge_ll']['edge_lin2_w']`;
   * '/'-joined paths under `params/`, as in `tests/golden/*.npz`:
     `params/conv0/edge_ll/edge_lin2_w`.
-Both map to the port's dotted parameter names (`dynamics.conv0.edge_ll.
+A nested tree of the same names ({'dynamics': {'conv0': {...}}}, as
+`utils/torch_import.py` returns) loads too. All map to the port's dotted
+parameter names (`dynamics.conv0.edge_ll.
 edge_lin2_w`). The port's modules name their parameters after the flax
 leaves and keep flax's (in, out) weight layout, so a leaf copies over
 unchanged. Loading raises on any missing, extra or mis-shaped leaf.
@@ -57,11 +59,25 @@ def read_golden_params(npz: Mapping[str, np.ndarray], prefix: str = "") -> Dict[
     return out
 
 
-def load_params(module: torch.nn.Module, flat: Mapping[str, np.ndarray]) -> None:
-    """Copy every leaf of `flat` into `module`'s parameters of the same name.
+def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """{dotted name: leaf} of a nested mapping (leaves are arrays)."""
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}.{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(flatten_tree(v, name))
+        else:
+            out[name] = v
+    return out
+
+
+def load_params(module: torch.nn.Module, flat: Mapping) -> None:
+    """Copy every leaf of `flat` ({dotted name: array}, or a nested tree of
+    those names) into `module`'s parameters of the same name.
 
     Raises KeyError on a missing or extra leaf, ValueError on a shape
     mismatch; nothing is copied unless every leaf matches."""
+    flat = flatten_tree(flat)
     params = dict(module.named_parameters())
     missing = sorted(set(params) - set(flat))
     extra = sorted(set(flat) - set(params))
