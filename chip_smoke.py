@@ -71,6 +71,31 @@ Phases, each timed on its own line; any failure raises (non-zero exit):
      40 -> 32 and lk 32 -> 40 grids timed) and ll_k 16 (12 a step); the
      learned EGNN and GVP encoders with rr_layout nbr and block, timed at
      batch 32.
+ 11. parallel: the parallel layer (kpdiff_tpu_torch/parallel/) at world size
+     1 through NCCL (initialize_multihost on a file:// store): 5 steps of the
+     flagship at full width, batch 64, on phase 6's batches with injected
+     (t, eps) through the dp x mp trainer (a ('data', 'model') mesh of
+     (1, 1): every collective of the keypoint split and the gradient
+     reductions runs) against the plain trainer, deterministic kernels,
+     losses and parameter checksum within rel 1e-5 in f32 and within rel
+     1e-3 with the config's bf16 pair MLPs (the two trainers add some
+     gradients in another order, and Adam turns bf16 rounding into 1e-4),
+     ms per step of both; the trained flagship's kp-sharded sample
+     (shard_encoded, batch 32, bucket 32, K=50) held against the unsharded
+     chain step by step on the unsharded chain's states (bf16 tolerance),
+     launches per step equal; the kernel at every
+     per-rank shape a 2- or 4-rank run gives it (dense kk 40 -> 40/n, kl
+     40/n -> 32 and lk 32 -> 40/n with kl_k 0, kk 20 -> 20/n, kk 24 -> 3 of
+     K=20 padded for 8, ll32 and kk40 at B/n), bf16 and f32, against the
+     plain version; and kpdiff_tpu_torch.dryrun.dryrun_multichip(1).
+Every row of the kernel table carries `device_ms`, the kernel's device time
+per launch with the launches queued behind a spin kernel, beside `ms` (CUDA
+events around back-to-back calls of the Python wrapper, which the host may
+pace on small grids); `library_ms` and `library_device_ms` time the yardstick
+on the same two clocks, so that each compares with its own; the rows at
+B <= 32 also carry `profiler_ms`, read from
+torch.profiler's kernel rows at the end of the run, since the profiler slows
+every launch that follows it.
 Every sampling path is held to its kernel launch count (ChainLog): for EGNN,
 n_layers launches per reverse step for ll, as many again for kk while it is
 dense or in blocks, and with kl_k 0 as many again for each of kl and lk (12
@@ -88,6 +113,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import os
 import pickle
 import statistics
 import subprocess
@@ -101,6 +127,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 import kpdiff_tpu_torch.models.egnn as egnn_mod
 from kpdiff_tpu_torch.analysis.analyzer import ModelAnalyzer
@@ -124,6 +152,9 @@ from kpdiff_tpu_torch.models.size_dist import LigandSizeDistribution, save_datas
 from kpdiff_tpu_torch.ops.cuda import egnn_edge
 from kpdiff_tpu_torch.ops.neighbors import dense_radius_adjacency
 from kpdiff_tpu_torch.ops.spatial import block_radius_adjacency, choose_tile, spatial_sort_permutation
+from kpdiff_tpu_torch.parallel import distributed as pdist
+from kpdiff_tpu_torch.parallel.kp_shard import shard_encoded
+from kpdiff_tpu_torch.parallel.mesh import make_mesh, params_checksum
 from kpdiff_tpu_torch.serve import KeypointSampler, decode_ligands
 from kpdiff_tpu_torch.training import trainer
 from kpdiff_tpu_torch.utils.params_io import load_params, read_keystr_npz
@@ -139,6 +170,8 @@ H100_BYTES = 3.35e12      # HBM3 bandwidth
 ELEMENTWISE_OPS = 16  # CUDA-core f32 ops per element, pair and chain: first-layer sum and
 #                      silu, lin2 bias and silu, the row product with attw or wout
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # relative max-abs error vs the plain version
+SPIN_CYCLES = 20_000_000  # about 10 ms of SM clocks: longer than the host takes to queue a measurement's launches
+PROFILE_LATER = []  # (kernel row, its inputs, keywords, launches) of the grids at B <= 32, read by the profiler last
 TRAIN_COMPLEXES = 256  # molgen training split: auto buckets [24, 32, 48], 3 full batches of 64 per epoch
 TRAIN_STEPS = 20
 TIMED_FROM = 5  # steps 5..19 enter the median ms/step
@@ -162,6 +195,12 @@ RAW_SPLITS = {"train": 5, "val": 1, "test": 2}
 RAW_BATCH, RAW_TRAIN_STEPS, RAW_SAMPLES, RAW_K = 4, 3, 8, 50
 REF_BATCH, REF_BUCKET, REF_K, REF_CHECK_STEPS, ENCODER_REPEATS = 32, 32, 50, 3, 3
 EXECUTED = dict(dynamics=dict(z_semantics="executed"), rec_encoder=dict(attn_semantics="executed"))
+# phase 11: the parallel layer at world size 1 (NCCL)
+PAR_STEPS, PAR_BATCH, PAR_BUCKET, PAR_K = 5, 32, 32, 50
+# (a)'s gates on the losses and the checksum, by compute dtype: f32 as tests/test_multihost.py; bf16 at about
+# six times the readings of sound runs on the H100 (1.146e-4 and 1.5e-4: Adam turns the other summation order's
+# bf16 rounding into parameter differences)
+PAR_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
 RESIDUE = (("N", "N"), ("CA", "C"), ("C", "C"), ("O", "O"), ("CB", "C"), ("CG", "C"), ("CD", "C"), ("OE1", "O"))
 
 
@@ -214,15 +253,22 @@ def bound(args, cd):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), pairs
 
 
-def library_ms(args, cd):
+def library_ms(args, cd, iters=20):
     """Yardstick: torch.matmul of the two (B*Ns*Nd, H) x (H, H) second-layer
-    products over all pairs, which the port never calls."""
+    products over all pairs, which the port never calls. (ms, device_ms) on
+    the kernel's two clocks: CUDA events around back-to-back calls as the
+    host makes them (cuda_ms), and the calls queued behind a spin kernel
+    (queued_ms)."""
     a_es, a_ed = args[0], args[1]
     b, ns, h = a_es.shape
     p = b * ns * a_ed.shape[1]
     x = torch.randn((p, h), device=a_es.device, dtype=cd)
     w = torch.randn((h, h), device=a_es.device, dtype=cd)
-    return cuda_ms(lambda: (torch.matmul(x, w), torch.matmul(x, w)))
+
+    def call():
+        return torch.matmul(x, w), torch.matmul(x, w)
+
+    return cuda_ms(call, iters=iters), queued_ms(call, iters)
 
 
 def measure(args, cd, label, iters=20):
@@ -237,15 +283,59 @@ def measure(args, cd, label, iters=20):
     if rel > TOL[cd]:
         raise RuntimeError(f"{label} {cd}: kernel vs plain relative error {rel:.3e} > {TOL[cd]:.0e}")
     k_ms = cuda_ms(lambda: egnn_edge.egnn_edge_dense(*args, **kw), iters=iters)
+    d_ms = queued_ms(lambda: egnn_edge.egnn_edge_dense(*args, **kw), iters)
     p_ms = cuda_ms(lambda: egnn_edge.egnn_edge_dense_plain(*args, **kw), warmup=1, iters=3)
     b_ms, b_by, pairs = bound(args, cd)
-    lib = library_ms(args, cd) if cd == torch.bfloat16 else None
+    lib, lib_d = library_ms(args, cd, iters) if cd == torch.bfloat16 else (None, None)
     row = dict(shape=label, dtype=str(cd).replace("torch.", ""), pairs=pairs, max_rel_err=rel,
-               max_abs_err=ab, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
-    print(f"kernel {label} {row['dtype']}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-          f"library_ms={lib if lib is None else round(lib, 4)} bound_ms={b_ms:.4f} ({b_by}) "
+               max_abs_err=ab, ms=k_ms, device_ms=d_ms, profiler_ms=None, plain_ms=p_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=lib, library_device_ms=lib_d)
+    if args[0].shape[0] <= FAMILY_BATCH:  # small grids: torch.profiler's reading too, after every timed phase
+        PROFILE_LATER.append((row, args, kw, iters))
+    print(f"kernel {label} {row['dtype']}: kernel_ms={k_ms:.4f} device_ms={d_ms:.4f} plain_ms={p_ms:.4f} "
+          f"library_ms={lib if lib is None else round(lib, 4)} "
+          f"library_device_ms={lib_d if lib_d is None else round(lib_d, 4)} bound_ms={b_ms:.4f} ({b_by}) "
           f"pairs={pairs} max_rel_err={rel:.3e} max_abs_err={ab:.3e}", flush=True)
     return row
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def queued_ms(fn, iters):
+    """Device ms per call of `fn`'s launches, back to back: a spin kernel
+    holds the stream while the host queues them, so no host time enters the
+    CUDA events (cuda_ms times the wrapper's calls as the host makes them)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def profiler_ms(fn, iters, tries=3):
+    """Device ms per launch of the edge kernel in `fn`, from torch.profiler's
+    kernel rows. A run that profiled each row as it went ran its later
+    phases 40-70% slower, and some profiles recorded no kernel row, so
+    main() reads it after every timed phase, profiling again when that happens."""
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and "egnn_edge" in e.key]
+        n = sum(e.count for e in rows)
+        if n:
+            return sum(_device_us(e) for e in rows) * 1e-3 / n  # per launch it recorded (it may drop a few)
+    return None
 
 
 def random_args(rng, b, ns, nd, h, dev):
@@ -470,7 +560,8 @@ def train_phase(params_path, seed, dev):
                   median_ms_host=med_host, median_ms_device_by_bucket=by_bucket, peak_memory_bytes=peak,
                   eval_kernel=ev_kernel, eval_plain=ev_plain, eval_rel_err=eval_err, eval_batches=len(eval_batches),
                   eval_launches=eval_launches, serve_launches=serve_launches)
-    return record, dict(train_steps=train_launches, train_eval=eval_launches, train_serve=serve_launches)
+    return (record, dict(train_steps=train_launches, train_eval=eval_launches, train_serve=serve_launches),
+            (batches[:PAR_STEPS], iters_per_epoch))
 
 
 def sync():
@@ -1396,6 +1487,208 @@ def encoder_times(cfgs, seed, dev):
     return rows
 
 
+# ---- phase 11: the parallel layer at world size 1
+
+def _timed_steps(step_fn, state, batches, t_eps, dev):
+    """Metrics and device ms (CUDA events) of one train step per batch."""
+    rows, ms = [], []
+    for batch, te in zip(batches, t_eps):
+        batch = batch.to(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        rows.append(step_fn(state, batch, t_eps=te))
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return rows, ms
+
+
+def parallel_train(params_path, seed, dev, batches, iters_per_epoch):
+    """(a) PAR_STEPS flagship steps through the dp x mp trainer on a (1, 1)
+    mesh against the plain trainer, same weights, batches and (t, eps), with
+    deterministic kernels (the scatter-adds of the kNN pairs and of the
+    gathers' backward), in f32 and with the config's bf16 pair MLPs, each
+    gated at its PAR_TOL and timed. The parallel path adds the keypoint
+    edges' and the gathered sources' gradients in another order than the
+    plain one, and Adam turns that rounding into parameter differences: in
+    bf16 they show at 1e-4, in f32 they stay far under 1e-5."""
+    flat = read_keystr_npz(params_path)
+    rng = np.random.default_rng(seed + 21)
+    n_t = load_config(CONFIG)["diffusion"]["n_timesteps"]
+    t_eps = [(rng.integers(0, n_t, b.batch_size), rng.normal(size=tuple(b.lig_x.shape)).astype(np.float32),
+              rng.normal(size=tuple(b.lig_h.shape)).astype(np.float32)) for b in batches]
+    mesh = make_mesh(1, ("data", "model"), (1, 1), device=dev.type)
+    rec = {}
+    # torch's deterministic mode asks for a fixed cuBLAS workspace; one stream is deterministic with the one
+    # this process already has, so the variable is set for the check only, and only here
+    cublas_cfg = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        for dtype_name in ("float32", "bfloat16"):
+            cfg = load_config(CONFIG)
+            for section in ("dynamics", "rec_encoder"):
+                cfg[section]["compute_dtype"] = dtype_name
+            tcfg = train_config_from(cfg)
+            out = {}
+            for label, kw in (("plain", {}), ("parallel", dict(mesh=mesh, kp_axis="model"))):
+                model = model_from_config(cfg, device=dev, seed=seed)
+                load_params(model, flat)
+                state = trainer.init_train_state(model, tcfg)
+                rows, ms = _timed_steps(trainer.make_train_step(tcfg, iters_per_epoch, **kw), state, batches,
+                                        t_eps, dev)
+                out[label] = dict(losses=[r["total"] for r in rows], ms=ms, checksum=params_checksum(model),
+                                  skipped=sum(r["skipped_nonfinite"] for r in rows))
+                del model, state
+            p, q = out["plain"], out["parallel"]
+            loss_errs = [_rel(a, b) for a, b in zip(q["losses"], p["losses"])]
+            sum_err = _rel(q["checksum"], p["checksum"])
+            rec[dtype_name] = dict(plain=p, parallel=q, loss_rel_err=loss_errs, checksum_rel_err=sum_err,
+                                   median_ms_plain=statistics.median(p["ms"][1:]),
+                                   median_ms_parallel=statistics.median(q["ms"][1:]))
+            tol = PAR_TOL[dtype_name]
+            print(f"parallel train {dtype_name}: {len(batches)} flagship steps at batch {batches[0].batch_size} "
+                  f"(buckets {[int(b.lig_x.shape[1]) for b in batches]}), the dp x mp trainer on a (1, 1) "
+                  f"{torch.distributed.get_backend()} mesh vs the plain trainer: loss rel err by step "
+                  f"{[f'{e:.2e}' for e in loss_errs]}, checksum rel err {sum_err:.3e} "
+                  + f"(gate {tol:.0e})"
+                  + f"; ms/step on CUDA events parallel {[round(m, 3) for m in q['ms']]} plain "
+                  f"{[round(m, 3) for m in p['ms']]}", flush=True)
+            if p["skipped"] or q["skipped"] or max(loss_errs) > tol or sum_err > tol:
+                raise RuntimeError(f"parallel trainer vs plain ({dtype_name}): loss {max(loss_errs):.3e}, "
+                                   f"checksum {sum_err:.3e}, skipped {p['skipped']} / {q['skipped']}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if cublas_cfg is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas_cfg
+    return rec
+
+
+def parallel_sample(params_path, seed, dev):
+    """(b) The trained flagship's kp-sharded sample (shard_encoded on a
+    1-rank 'model' mesh) against the unsharded chain: its dynamics on every
+    state of the unsharded chain (bf16 tolerance), then both chains free,
+    timed, launch counts equal."""
+    cfg = load_config(CONFIG)
+    model = model_from_config(cfg, device=dev, seed=seed)
+    load_params(model, read_keystr_npz(params_path))
+    model.eval()
+    pad = PaddingConfig.from_config(cfg)
+    cpx = synthetic_batch(seed + 5, batch=PAR_BATCH, n_rec_pad=pad.n_rec, n_lig_pad=PAR_BUCKET, n_rec_feat=10,
+                          n_lig_feat=10, n_kp=pad.n_kp, kp_feat_dim=model.cfg.rec_nf, n_ip_pad=pad.n_ip,
+                          min_rec=260, min_lig=PAR_BUCKET - 8, device=dev)
+    mesh = make_mesh(1, ("model",), device=dev.type)
+    with torch.no_grad():
+        enc, kk = model.encode(cpx)
+        kk = model.compact_kk(enc, kk)
+        enc_s, kk_s, shard = shard_encoded(enc, kk, mesh, axis="model")
+    states, real = [], model._apply_dynamics
+
+    def recording(dyn, *a, **kw):
+        out = real(dyn, *a, **kw)
+        if kw.get("kp_shard") is None:
+            states.append((dyn, a, out))
+        return out
+
+    runs = {}
+    model._apply_dynamics = recording
+    try:
+        for label, (e, k, sh) in (("unsharded", (enc, kk, None)), ("sharded", (enc_s, kk_s, shard))):
+            gen = torch.Generator(device=dev).manual_seed(seed + 6)
+            model.sample(e, k, sample_steps=2, generator=gen, kp_shard=sh)  # warm-up
+            states.clear()
+            torch.cuda.synchronize()
+            egnn_edge.launches = 0
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = model.sample(e, k, sample_steps=PAR_K, generator=gen.manual_seed(seed + 7), kp_shard=sh)
+            end.record()
+            torch.cuda.synchronize()
+            runs[label] = dict(launches=egnn_edge.launches, ms_per_step=start.elapsed_time(end) / PAR_K, out=out,
+                               states=list(states))
+            for key in ("lig_x", "lig_h"):
+                if not torch.isfinite(out[key]).all():
+                    raise RuntimeError(f"parallel sample {label}: {key} not finite")
+    finally:
+        model._apply_dynamics = real
+    # the sharded dynamics on each state of the unsharded chain (recorded in the unsharded run), beside the
+    # unsharded dynamics run again on it (the kNN pairs' scatter-adds are not deterministic on the card)
+    egnn_edge.launches = 0
+    step_errs, replay_errs = [], []
+    with torch.no_grad():
+        lo, hi = shard.bounds(enc_s.kp_x.shape[1] * shard.size)
+        for dyn, a, want in runs["unsharded"]["states"]:
+            lig_x, lig_h, lig_mask, kp_x = a[:4]
+            got = real(dyn, lig_x, lig_h, lig_mask, kp_x[:, lo:hi], enc_s.kp_h, enc_s.kp_mask, a[6], kk_s, enc_s.kp_v,
+                       kp_shard=shard)
+            step_errs.append(rel_err(got, want))
+            replay_errs.append(rel_err(real(dyn, *a), want))
+    checked_launches = egnn_edge.launches
+    worst, replay = max(step_errs), max(replay_errs)
+    u, sh_run = runs["unsharded"], runs["sharded"]
+    free = rel_err([sh_run["out"]["lig_x"]], [u["out"]["lig_x"]])
+    print(f"parallel sample: kp-sharded trained flagship, batch {PAR_BATCH}, bucket {PAR_BUCKET}, K={PAR_K}, "
+          f"kk {kk_layout(kk)}: launches sharded {sh_run['launches']} unsharded {u['launches']}; ms/step on CUDA events "
+          f"sharded {sh_run['ms_per_step']:.3f} unsharded {u['ms_per_step']:.3f}; sharded dynamics on the "
+          f"unsharded chain's {len(step_errs)} states: max_rel_err {worst:.3e} (tolerance {TOL[torch.bfloat16]:.0e}; "
+          f"the unsharded dynamics again on them: {replay:.3e}); free chains' lig_x max_rel_diff {free:.3e} "
+          f"(reported)", flush=True)
+    if sh_run["launches"] != u["launches"] or u["launches"] != launches_per_step(model, kk) * PAR_K:
+        raise RuntimeError(f"parallel sample: launches sharded {sh_run['launches']}, unsharded {u['launches']}")
+    if len(step_errs) != PAR_K or not worst <= TOL[torch.bfloat16]:
+        raise RuntimeError(f"parallel sample: {len(step_errs)} states, max_rel_err {worst:.3e}")
+    return dict(kk=kk_layout(kk), launches=sh_run["launches"], launches_unsharded=u["launches"],
+                ms_per_step=sh_run["ms_per_step"], ms_per_step_unsharded=u["ms_per_step"],
+                step_max_rel_err=worst, replay_max_rel_err=replay, free_max_rel_diff=free,
+                checked_launches=checked_launches)
+
+
+def per_rank_shapes(seed, dev):
+    """(c) The edge kernel at the shapes a 2- or 4-rank run gives it, bf16 and f32."""
+    rng = np.random.default_rng(seed + 8)
+    shapes = []
+    for n in (2, 4):
+        shapes += [(f"kp{n}_kk40", PAR_BATCH, 40, 40 // n), (f"kp{n}_kl", PAR_BATCH, 40 // n, PAR_BUCKET),
+                   (f"kp{n}_lk", PAR_BATCH, PAR_BUCKET, 40 // n), (f"kp{n}_kk20", PAR_BATCH, 20, 20 // n),
+                   (f"dp{n}_ll32", PAR_BATCH // n, 32, 32), (f"dp{n}_kk40", PAR_BATCH // n, 40, 40)]
+    shapes.append(("kp8_kk24_padded", PAR_BATCH, 24, 3))
+    rows = []
+    for label, b, ns, nd in shapes:
+        base = random_args(rng, b, ns, nd, 257, dev)
+        for cd in (torch.bfloat16, torch.float32):
+            rows.append(measure(with_dtype(base, cd), cd, f"parallel_{label}", iters=20))
+    return rows
+
+
+def parallel_phase(params_path, seed, dev, batches, iters_per_epoch, tmp):
+    """Phase 11 in a world-size-1 NCCL group; returns (record, launches by path, kernel rows)."""
+    from kpdiff_tpu_torch.dryrun import dryrun_multichip
+
+    pdist.initialize_multihost("file://" + str(Path(tmp) / "store"), 1, 0, device=dev.type)
+    try:
+        if torch.distributed.get_backend() != pdist.backend_for(dev):
+            raise RuntimeError(f"phase 11 group backend {torch.distributed.get_backend()}, expected "
+                               f"{pdist.backend_for(dev)}")
+        train = parallel_train(params_path, seed, dev, batches, iters_per_epoch)
+        sample = parallel_sample(params_path, seed, dev)
+        rows = per_rank_shapes(seed, dev) if dev.type == "cuda" else []
+        egnn_edge.launches = 0
+        line = dryrun_multichip(1, device=dev.type)
+        torch.cuda.synchronize()
+        dry_launches = egnn_edge.launches
+        if not line or "dryrun_multichip(1) ok" not in line or (dev.type == "cuda" and not dry_launches):
+            raise RuntimeError(f"dryrun_multichip(1): {line!r}, {dry_launches} kernel launches")
+    finally:
+        torch.distributed.destroy_process_group()
+    record = dict(train=train, sample=sample, dryrun=line, dryrun_launches=dry_launches)
+    paths = dict(parallel_kp_sample=sample["launches"], parallel_kp_checked=sample["checked_launches"],
+                 parallel_dryrun=dry_launches)
+    return record, paths, rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--params", default=PARAMS, help=f"keystr npz of trained weights (default: {PARAMS})")
@@ -1581,7 +1874,7 @@ def main():
 
     # ---- 6. train: flagship training steps, held-out loss, export -> serve
     t0 = time.perf_counter()
-    train_record, train_paths = train_phase(args.params, args.seed, dev)
+    train_record, train_paths, par_batches = train_phase(args.params, args.seed, dev)
     phase("train", t0)
 
     # ---- 7. front ends: byop (PDB, mmCIF), sample CLI, HTTP server, train CLI with the analyzer
@@ -1646,6 +1939,24 @@ def main():
     torch.cuda.empty_cache()
     phase("reference_user", t0)
 
+    # ---- 11. the parallel layer at world size 1 through NCCL
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as par_tmp:
+        par_record, par_paths, par_rows = parallel_phase(args.params, args.seed, dev, *par_batches, par_tmp)
+    del par_batches
+    torch.cuda.empty_cache()
+    phase("parallel", t0)
+
+    # ---- torch.profiler's device time of the small grids, after every timed phase (it slows what follows it)
+    t0 = time.perf_counter()
+    for row, a, kw, iters in PROFILE_LATER:
+        row["profiler_ms"] = profiler_ms(lambda: egnn_edge.egnn_edge_dense(*a, **kw), iters)
+        print(f"kernel {row['shape']} {row['dtype']}: profiler_ms={row['profiler_ms']} device_ms={row['device_ms']:.4f} "
+              f"kernel_ms={row['ms']:.4f}", flush=True)
+    read = sum(r["profiler_ms"] is not None for r, *_ in PROFILE_LATER)
+    PROFILE_LATER.clear()
+    phase(f"profiler ({read} small-grid rows read)", t0)
+
     total = time.perf_counter() - t_all
     print(f"total wall: {total:.3f} s", flush=True)
     head = main_rows.get("ll48") or next(iter(main_rows.values()))
@@ -1653,12 +1964,13 @@ def main():
         "name": "egnn_edge_dense", "route": "cuda", "source": "kpdiff_tpu_torch/csrc/egnn_edge.cu",
         "replaces": "kpdiff_tpu/ops/pallas/egnn_edge.py:174", "launches": main_launches,
         "shape": head["shape"], "max_abs_err": head["max_abs_err"], "max_rel_err_bf16": head["max_rel_err"],
-        "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+        "ms": head["ms"], "kernel_ms": head["ms"], "device_ms": head["device_ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+        "library_device_ms": head["library_device_ms"],
         "launches_by_path": dict(sample=main_launches, **{k: v["launches"] for k, v in serve_paths.items()},
                                  **train_paths, **{k: v["launches"] for k, v in front_paths.items()},
-                                 quality=quality_path["launches"], **family_paths, **ref_paths),
-        "shapes": list(main_rows.values()) + family_rows + option_rows + shape_rows,
+                                 quality=quality_path["launches"], **family_paths, **ref_paths, **par_paths),
+        "shapes": list(main_rows.values()) + family_rows + option_rows + par_rows + shape_rows,
     }]}
     record = dict(card=card, device=torch.cuda.get_device_name(0), weights=weights, slice=slice_rows,
                   mixture_s_per_ligand=mixture, chain_step_max_rel_err=chain_step_err,
@@ -1667,7 +1979,7 @@ def main():
                   paths={**serve_paths, **front_paths, "quality": quality_path}, families=family_records,
                   quality_gvp=gvp_quality, reference_user=dict(raw=raw_record, checkpoints=checkpoints,
                                                                 graph_options=options, encoders=encoder_rows),
-                  total_wall_s=total, **kernels)
+                  parallel=par_record, total_wall_s=total, **kernels)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1))

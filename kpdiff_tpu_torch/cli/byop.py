@@ -4,7 +4,9 @@ The user supplies a receptor (.pdb or .cif/.mmcif) and a reference ligand
 SDF that defines the pocket; pocket extraction and featurization run at
 inference with the first-party parsers, then the port's sampler draws
 molecules at the reference ligand's centre of mass on one CUDA card
-(`--device cpu` runs the plain PyTorch path on the CPU).
+(`--device cpu` runs the plain PyTorch path on the CPU); with
+`--kp_shard_devices N` the keypoints are split over N devices
+(serve.py::KeypointSampler starts the N - 1 worker ranks).
 
     python -m kpdiff_tpu_torch.cli.byop --model_dir runs/<run> \\
         --receptor_file prot.pdb --ligand_file ref_lig.sdf --out byop_out/
@@ -35,7 +37,9 @@ def parse_args(argv=None):
     p.add_argument("--eta", type=float, default=1.0,
                    help="DDIM noise scale: 1.0 = the ancestral chain; 0.0 = deterministic DDIM")
     p.add_argument("--max_batch_size", type=int, default=64)
-    p.add_argument("--kp_shard_devices", type=int, default=0, help="only 0 is ported")
+    p.add_argument("--kp_shard_devices", type=int, default=0,
+                   help="split the keypoints of the reverse diffusion over this many devices "
+                        "(parallel/kp_shard.py; one rank each)")
     p.add_argument("--pocket_minimization", action="store_true",
                    help="relax the sampled ligands inside the fixed pocket and write "
                         "pocket_minimized_ligands.sdf + pocket_min_rmsds.csv")
@@ -102,14 +106,25 @@ def process_ligand_and_pocket(receptor_file, ligand_file, config):
 def main(argv=None):
     args = parse_args(argv)
 
-    from kpdiff_tpu_torch.data.pdb import write_pdb, write_xyz
-    from kpdiff_tpu_torch.data.sdf import write_sdf
     from kpdiff_tpu_torch.serve import KeypointSampler
 
     sampler = KeypointSampler(args.model_dir, checkpoint_step=args.checkpoint_step,
                               batch_size=min(args.n_mols, args.max_batch_size), seed=args.seed,
                               sample_steps=args.sample_steps, eta=args.eta,
                               kp_shard_devices=args.kp_shard_devices, device=args.device)
+    if sampler.rank:  # a worker rank under torchrun: sample rank 0's chunks
+        sampler.worker_loop()
+        return []
+    try:
+        return _run(args, sampler)
+    finally:
+        sampler.close()
+
+
+def _run(args, sampler):
+    from kpdiff_tpu_torch.data.pdb import write_pdb, write_xyz
+    from kpdiff_tpu_torch.data.sdf import write_sdf
+
     config = sampler.config
     data = process_ligand_and_pocket(args.receptor_file, args.ligand_file, config)
     n_ref_atoms = data["lig_pos"].shape[0]

@@ -14,6 +14,13 @@ molecules or max_tries, and write the reference's output layout:
         sample_time.pkl
         trajectories/        # with --visualize: one SDF per sample
 
+With `--n_devices N` the chain runs on N devices, one rank each
+(parallel/): `--shard_mode data` gives each rank its rows of the batch
+(rounded up to a multiple of N), `--shard_mode kp` its keypoint rows of
+every pocket's batch (parallel/kp_shard.py). Outside a process group the
+CLI starts its N ranks itself; under torchrun it uses the group. Rank 0
+writes the outputs.
+
 Usage:
     python -m kpdiff_tpu_torch.cli.sample --model_dir runs/<run>/ --out sampled_mols/
     python -m kpdiff_tpu_torch.cli.sample --model_dir ... --synthetic 4   # no dataset
@@ -41,8 +48,9 @@ def parse_args(argv=None):
     p.add_argument("--synthetic", type=int, default=0)
     p.add_argument("--samples_per_pocket", type=int, default=100)
     p.add_argument("--max_batch_size", type=int, default=128)
-    p.add_argument("--n_devices", type=int, default=1, help="only 1 is ported")
-    p.add_argument("--shard_mode", choices=["data", "kp"], default="data", help="only 'data' is ported")
+    p.add_argument("--n_devices", type=int, default=1, help="devices (ranks); 0 = every visible device")
+    p.add_argument("--shard_mode", choices=["data", "kp"], default="data",
+                   help="data: split the batch over the devices; kp: split the keypoints (parallel/kp_shard.py)")
     p.add_argument("--max_tries", type=int, default=3)
     p.add_argument("--avg_validity", type=float, default=0.85)
     p.add_argument("--use_ref_lig_com", action="store_true")
@@ -67,7 +75,28 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
 
+    from kpdiff_tpu_torch.device import resolve_device
+    from kpdiff_tpu_torch.parallel import distributed as pdist
+
+    dev = resolve_device(args.device)
+    if not pdist.join_launcher_group(args.device):
+        n = pdist.resolve_n_devices(args.n_devices, dev)
+        if n > 1:
+            pdist.spawn(_rank_main, n, args=(args,), device=args.device)
+            return
+    _sample(args)
+
+
+def _rank_main(rank, args):
+    _sample(args)
+
+
+def _sample(args):
     import torch
+
+    from kpdiff_tpu_torch.parallel import distributed as pdist
+    from kpdiff_tpu_torch.parallel.kp_shard import data_shard, shard_encoded
+    from kpdiff_tpu_torch.parallel.mesh import gather_batch, make_mesh, padded_batch, shard_batch
 
     from kpdiff_tpu_torch.analysis.molecule_builder import build_molecule
     from kpdiff_tpu_torch.config import PaddingConfig, resolve_feature_sizes
@@ -75,10 +104,16 @@ def main(argv=None):
     from kpdiff_tpu_torch.data.padding import pad_item, to_complex
     from kpdiff_tpu_torch.data.pdb import write_xyz
     from kpdiff_tpu_torch.data.sdf import write_sdf
-    from kpdiff_tpu_torch.serve import check_parallelism, load_run_model
+    from kpdiff_tpu_torch.serve import load_run_model
 
-    check_parallelism(n_devices=args.n_devices, shard_mode=args.shard_mode)
-    config, model = load_run_model(args.model_dir, args.checkpoint_step, device=args.device)
+    mesh = None
+    if pdist.in_group():
+        if args.n_devices not in (0, pdist.world_size()):
+            raise ValueError(f"--n_devices {args.n_devices} inside a group of {pdist.world_size()} ranks")
+        mesh = make_mesh(pdist.world_size(), ("model" if args.shard_mode == "kp" else "data",), device=args.device)
+    writer = pdist.rank() == 0
+    config, model = load_run_model(args.model_dir, args.checkpoint_step,
+                                   device=mesh.device if mesh else args.device)
     dev = next(model.parameters()).device
     pad = PaddingConfig.from_config(config)
     n_rec_feat, n_lig_feat, _ = resolve_feature_sizes(config)
@@ -92,8 +127,12 @@ def main(argv=None):
         ds = ComplexDataset.from_pickle(Path(config["dataset"]["location"]) / f"{args.split}.pkl")
 
     out_root = Path(args.out)
-    out_root.mkdir(parents=True, exist_ok=True)
+    if writer:
+        out_root.mkdir(parents=True, exist_ok=True)
     batch = args.max_batch_size
+    data_par = mesh is not None and args.shard_mode == "data"
+    if data_par:
+        batch = padded_batch(batch, mesh.n_devices)
     idxs = [args.dataset_idx] if args.dataset_idx is not None else range(min(len(ds), args.dataset_size or len(ds)))
 
     size_dist = None
@@ -138,16 +177,27 @@ def main(argv=None):
                                        device=dev)
 
         # encode once per pocket (reference test.py:164) and compact the static kk edges,
-        # under no_grad so that every dense edge takes the CUDA kernel
+        # under no_grad so that every dense edge takes the CUDA kernel; every rank
+        # builds the same batch and takes its part
+        shard = None
         with torch.no_grad():
+            if data_par:
+                cpx, init_com = shard_batch(cpx, mesh), shard_batch(init_com, mesh)
+                shard = data_shard(mesh, batch)
             enc, kk = model.encode(cpx)
             kk = model.compact_kk(enc, kk)
+            enc_s, kk_s = enc, kk
+            if mesh is not None and not data_par:
+                enc_s, kk_s, shard = shard_encoded(enc, kk, mesh, axis="model")
         mols = []
         n_tries = 0
         while len(mols) < args.samples_per_pocket and n_tries < args.max_tries:
             n_tries += 1
-            out = model.sample(enc, kk, init_com=init_com, return_every=args.frames_every if args.visualize else 0,
-                               sample_steps=args.sample_steps, eta=args.eta, generator=generator)
+            out = model.sample(enc_s, kk_s, init_com=init_com,
+                               return_every=args.frames_every if args.visualize else 0,
+                               sample_steps=args.sample_steps, eta=args.eta, generator=generator, kp_shard=shard)
+            if data_par:  # every rank gets the whole batch, so that all take the same retry decision
+                out = {k: gather_batch(v, mesh, dim=1 if k.startswith("frames") else 0) for k, v in out.items()}
             out = {k: v.cpu().numpy() for k, v in out.items()}
             lig_x, lig_h, lig_mask = out["lig_x"], out["lig_h"], out["lig_mask"]
             for b in range(batch):
@@ -159,12 +209,14 @@ def main(argv=None):
                 mol = build_molecule(lig_x[b][m], elements, largest_frag=True, sanitize=True)
                 if mol is not None:
                     mols.append(mol)
-                    if args.visualize and "frames_x" in out and len(mols) <= 10:
+                    if writer and args.visualize and "frames_x" in out and len(mols) <= 10:
                         _write_frames(out, b, m, lig_elements, out_root / f"pocket_{i}" / "trajectories", len(mols))
                 if len(mols) >= args.samples_per_pocket:
                     break
 
         dt = time.time() - t0
+        if not writer:
+            continue
         pdir = out_root / f"pocket_{i}"
         pdir.mkdir(parents=True, exist_ok=True)
         write_sdf([m.to_sdf_mol(title=f"pocket{i}_sample{j}") for j, m in enumerate(mols)], pdir / "raw_ligands.sdf")

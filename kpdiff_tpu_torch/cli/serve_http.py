@@ -4,7 +4,8 @@ stdlib-only REST).
 The reference's inference entry points are one-shot CLI scripts that reload
 the checkpoint on every invocation (test.py / byop.py). This module puts a
 threaded JSON/SDF HTTP API in front of the port's `serve.KeypointSampler`,
-which keeps the model resident on one CUDA card.
+which keeps the model resident on one CUDA card (with `--kp_shard_devices N`,
+on N: rank 0 serves, the sampler's worker ranks sample in lockstep).
 
 Endpoints:
   GET  /health        -> {"status", "model_dir", "lig_buckets", "batch_size"}
@@ -148,7 +149,8 @@ def main(argv=None):
     ap.add_argument("--batch_size", type=int, default=32)
     ap.add_argument("--sample_steps", type=int, default=0,
                     help="strided sampling with K < n_timesteps ancestral steps; 0 = the full chain")
-    ap.add_argument("--kp_shard_devices", type=int, default=0, help="only 0 is ported")
+    ap.add_argument("--kp_shard_devices", type=int, default=0,
+                    help="split the keypoints over this many devices (latency mode, parallel/kp_shard.py)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", type=str, default="cuda", help="cuda (default; raises without CUDA) or cpu")
     args = ap.parse_args(argv)
@@ -160,6 +162,9 @@ def main(argv=None):
         batch_size=args.batch_size, seed=args.seed,
         sample_steps=args.sample_steps, kp_shard_devices=args.kp_shard_devices, device=args.device,
     )
+    if sampler.rank:  # a worker rank under torchrun: sample rank 0's chunks
+        sampler.worker_loop()
+        return
     server = make_server(sampler, args.host, args.port)
     print(f"serving {args.model_dir} on http://{args.host}:{server.server_address[1]}",
           flush=True)
@@ -167,6 +172,9 @@ def main(argv=None):
         server.serve_forever()
     except KeyboardInterrupt:
         server.shutdown()
+    finally:
+        server.server_close()
+        sampler.close()
 
 
 if __name__ == "__main__":

@@ -11,8 +11,16 @@ the keystr npz that both packages load. Metrics go to the pickle logs and
 stdout only. Every `training.sample_interval` epochs, from epoch ~0 on, the
 molecule analyzer (analysis/analyzer.py) samples a few held-out pockets and
 appends its `mol_*` row to test_metrics.pkl (`export_params --best` reads
-them). Not ported yet: data-parallel and keypoint-sharded training
-(`--n_devices`, `--mp_devices` other than 1 raise NotImplementedError).
+them).
+
+`--n_devices N` trains data parallel on N devices, one rank each
+(0 = every visible device); `--mp_devices M` (dividing N, and dividing the
+keypoint count) splits the keypoints over M of them, a ('data', 'model')
+mesh of (N/M, M) (training/trainer.py). Outside a process group the CLI
+starts its N ranks itself; under torchrun it uses the group. Every rank
+loads the same global batches and takes its rows; rank 0 makes the run
+directory, writes the checkpoints and the metrics logs, and runs the
+held-out loss and the analyzer.
 """
 from __future__ import annotations
 
@@ -36,8 +44,9 @@ def parse_args(argv=None):
     p.add_argument("--dataset_size", type=int, default=None)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", type=str, default="cuda", help="cuda (default; raises without CUDA) or cpu")
-    p.add_argument("--n_devices", type=int, default=1, help="only 1 is ported")
-    p.add_argument("--mp_devices", type=int, default=1, help="only 1 is ported")
+    p.add_argument("--n_devices", type=int, default=1, help="devices (ranks); 0 = every visible device")
+    p.add_argument("--mp_devices", type=int, default=1,
+                   help="devices that split the keypoints (dp x mp); must divide --n_devices")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of steps 10-15 to this dir")
     p.add_argument("--set", action="append", default=[], metavar="SECTION.KEY=VALUE",
@@ -60,29 +69,19 @@ def apply_overrides(config, overrides):
     return config
 
 
-def _check_ported(args):
-    if args.n_devices != 1 or args.mp_devices != 1:
-        raise NotImplementedError(
-            f"--n_devices {args.n_devices} --mp_devices {args.mp_devices}: multi-device training "
-            "(data parallel, keypoint sharding) is not ported yet; pass 1")
-
-
 def main(argv=None):
+    """-> (run_dir, TrainState); (run_dir, None) when it started the ranks itself."""
     args = parse_args(argv)
 
-    import torch
-
-    from kpdiff_tpu_torch.config import (PaddingConfig, dump_yaml, load_config, model_from_config,
-                                         resolve_feature_sizes)
-    from kpdiff_tpu_torch.data.dataset import ComplexDataset, PaddedLoader, resolve_lig_buckets, synthetic_dataset
-    from kpdiff_tpu_torch.data.prefetch import prefetch
+    from kpdiff_tpu_torch.config import PaddingConfig, dump_yaml, load_config
     from kpdiff_tpu_torch.device import resolve_device
-    from kpdiff_tpu_torch.training.scheduler import is_restart_boundary
-    from kpdiff_tpu_torch.training.trainer import (MetricsLog, checkpoint_steps, init_train_state, load_checkpoint,
-                                                   make_train_step, save_checkpoint)
+    from kpdiff_tpu_torch.parallel import distributed as pdist
 
     dev = resolve_device(args.device)
-    _check_ported(args)
+    pdist.join_launcher_group(args.device)
+    n = pdist.world_size() if pdist.in_group() else pdist.resolve_n_devices(args.n_devices, dev)
+    if args.mp_devices < 1 or n % args.mp_devices:
+        raise SystemExit(f"--mp_devices {args.mp_devices} must divide the device count {n}")
     if args.resume:
         run_dir = Path(args.resume)
         config = apply_overrides(load_config(run_dir / "config.yml"), args.set)
@@ -91,7 +90,6 @@ def main(argv=None):
         name = config.get("experiment", {}).get("name", "run")
         results_dir = Path(config.get("experiment", {}).get("results_dir", "runs/"))
         run_dir = results_dir / f"{name}_{time.strftime('%Y%m%d_%H%M%S')}_{uuid.uuid4().hex[:4]}"
-        run_dir.mkdir(parents=True, exist_ok=True)
 
     tr = config.setdefault("training", {})
     if args.epochs is not None:
@@ -102,10 +100,58 @@ def main(argv=None):
         tr["learning_rate"] = args.learning_rate
     if args.dataset_size is not None:
         config.setdefault("dataset", {})["dataset_size"] = args.dataset_size
-    if not args.resume:
+    n_kp = PaddingConfig.from_config(config).n_kp
+    if n_kp % args.mp_devices:
+        raise ValueError(f"n_keypoints {n_kp} must be divisible by the 'model' mesh axis size {args.mp_devices} "
+                         "for kp-sharded training")
+    dp = n // args.mp_devices
+    if tr.get("batch_size", 32) % dp:
+        raise ValueError(f"batch_size {tr.get('batch_size', 32)} must divide over the {dp} data-parallel ranks")
+
+    if pdist.rank() == 0 and not args.resume:
+        run_dir.mkdir(parents=True, exist_ok=True)
         (run_dir / "config.yml").write_text(dump_yaml(config))
+    if n > 1 and not pdist.in_group():
+        pdist.spawn(_rank_main, n, args=(args, config, str(run_dir)), device=args.device)
+        return run_dir, None
+    if pdist.in_group():  # every rank takes rank 0's run directory
+        import torch
+        import torch.distributed as dist
+
+        box = [str(run_dir)]
+        dist.broadcast_object_list(box, src=0, device=torch.device("cuda", torch.cuda.current_device())
+                                   if dev.type == "cuda" else None)
+        run_dir = Path(box[0])
+    return _train(args, config, run_dir)
+
+
+def _rank_main(rank, args, config, run_dir):
+    _train(args, config, Path(run_dir))
+
+
+def _train(args, config, run_dir):
+    import torch
+
+    from kpdiff_tpu_torch.config import PaddingConfig, model_from_config, resolve_feature_sizes
+    from kpdiff_tpu_torch.data.dataset import ComplexDataset, PaddedLoader, resolve_lig_buckets, synthetic_dataset
+    from kpdiff_tpu_torch.data.prefetch import prefetch
+    from kpdiff_tpu_torch.parallel import distributed as pdist
+    from kpdiff_tpu_torch.parallel.mesh import make_mesh, replicate_params, shard_batch
+    from kpdiff_tpu_torch.training.scheduler import is_restart_boundary
+    from kpdiff_tpu_torch.training.trainer import (MetricsLog, checkpoint_steps, init_train_state, load_checkpoint,
+                                                   make_train_step, save_checkpoint)
+
+    tr = config["training"]
+    mesh = None
+    if pdist.in_group():
+        n, mp = pdist.world_size(), args.mp_devices
+        mesh = make_mesh(n, ("data", "model"), (n // mp, mp), device=args.device)
+    writer = pdist.rank() == 0
+    dev = mesh.device if mesh else torch.device(args.device)
 
     model = model_from_config(config, device=dev, seed=args.seed)
+    if mesh is not None:
+        replicate_params(model, mesh)
     pad = PaddingConfig.from_config(config)
     n_rec_feat, _, _ = resolve_feature_sizes(config)
 
@@ -144,11 +190,12 @@ def main(argv=None):
     if args.resume:
         load_checkpoint(run_dir / "checkpoints", state)
         print(f"resumed from step {state.step}", flush=True)
-    step_fn = make_train_step(tcfg, iters_per_epoch)
+    step_fn = make_train_step(tcfg, iters_per_epoch, mesh=mesh,
+                              kp_axis="model" if mesh is not None and args.mp_devices > 1 else None)
     generator = torch.Generator(device=dev).manual_seed(args.seed + 1)
 
-    train_log = MetricsLog(run_dir / "train_metrics.pkl")
-    test_log = MetricsLog(run_dir / "test_metrics.pkl")
+    train_log = MetricsLog(run_dir / "train_metrics.pkl") if writer else None
+    test_log = MetricsLog(run_dir / "test_metrics.pkl") if writer else None
     ckpt_dir = run_dir / "checkpoints"
     if ((config.get("wandb") or {}).get("init_kwargs") or {}).get("mode", "disabled") != "disabled":
         print("wandb is not used by the port; metrics go to the pickle logs only", flush=True)
@@ -178,7 +225,9 @@ def main(argv=None):
     profiler = None
 
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"run dir: {run_dir}; params: {n_params:,}; device: {dev}; iters/epoch: {iters_per_epoch}", flush=True)
+    if writer:
+        print(f"run dir: {run_dir}; params: {n_params:,}; device: {dev}; devices: {pdist.world_size()} "
+              f"(model axis {args.mp_devices}); iters/epoch: {iters_per_epoch}", flush=True)
 
     epochs = tr.get("epochs", 3)
     t0 = time.time()
@@ -190,7 +239,7 @@ def main(argv=None):
             if epoch_exact >= epochs:
                 done = True
                 break
-            if args.profile_dir and state.step == 10:
+            if args.profile_dir and writer and state.step == 10:
                 profiler = _start_profiler(dev)
             if profiler is not None and state.step == 15:
                 profiler.stop()
@@ -199,6 +248,8 @@ def main(argv=None):
                 profiler = None
                 print(f"profiler trace written to {args.profile_dir}", flush=True)
 
+            # this rank's rows of each micro-batch
+            batch = batch if mesh is None else shard_batch(batch, mesh, micro_batches=tcfg.grad_accum)
             metrics = step_fn(state, batch.to(dev, non_blocking=True), generator=generator)
 
             # a skipped non-finite step is logged; a streak of them halts the
@@ -214,6 +265,8 @@ def main(argv=None):
                 last_good = f"step_{steps[-1]}.pt" if steps else "none"
                 raise RuntimeError(f"10 consecutive non-finite losses ending at step {state.step}; "
                                    f"state NOT saved; resume from {ckpt_dir}/{last_good}")
+            if not writer:
+                continue
 
             if epoch_exact - last_metrics_marker >= metrics_interval:
                 last_metrics_marker = epoch_exact
@@ -245,7 +298,7 @@ def main(argv=None):
             prev_epoch = epoch_exact
 
         # complexes beyond the padding capacity are data loss: say so
-        if train_loader.n_dropped and not dropped_warned:
+        if writer and train_loader.n_dropped and not dropped_warned:
             dropped_warned = True
             print(f"  WARNING: {train_loader.n_dropped}/{len(train_ds)} training complexes exceed padding "
                   f"capacity (n_lig={pad.n_lig}, n_rec={pad.n_rec}, n_ip={pad.n_ip}) and were dropped", flush=True)
@@ -255,6 +308,8 @@ def main(argv=None):
     if profiler is not None:
         profiler.stop()
 
+    if not writer:
+        return run_dir, state
     final_epoch = state.step / iters_per_epoch
     test_row = evaluate(model, test_loader, dev, generator, test_epochs=tr.get("test_epochs", 1))
     test_row["epoch"] = final_epoch

@@ -63,8 +63,11 @@ def exact_plan(cost: torch.Tensor, col_mask: torch.Tensor, row_mask: torch.Tenso
 
 
 def ot_loss(kp_x: torch.Tensor, kp_mask: torch.Tensor, pts: torch.Tensor, pts_mask: torch.Tensor,
-            method: str = "sinkhorn", sinkhorn_eps: float = 0.05, sinkhorn_iters: int = 100) -> torch.Tensor:
-    """Batched OT loss, mean over the graphs with keypoints and targets."""
+            method: str = "sinkhorn", sinkhorn_eps: float = 0.05, sinkhorn_iters: int = 100,
+            den=None) -> torch.Tensor:
+    """Batched OT loss, mean over the graphs with keypoints and targets.
+    `den(count)` replaces the clamped count of such graphs (a data-parallel
+    rank's share of the global count: ShardContext.mean_den)."""
     cost = _pair_cost(kp_x, pts)
     if method == "sinkhorn":
         plan = sinkhorn_plan(cost, pts_mask, kp_mask, eps=sinkhorn_eps, iters=sinkhorn_iters)
@@ -76,4 +79,5 @@ def ot_loss(kp_x: torch.Tensor, kp_mask: torch.Tensor, pts: torch.Tensor, pts_ma
     # repeat-padded batch rows have empty masks: they are left out of the mean
     valid = (torch.sum(pts_mask, dim=1) > 0) & (torch.sum(kp_mask, dim=1) > 0)
     per_graph = torch.where(valid, per_graph, 0.0)
-    return torch.sum(per_graph) / torch.clamp(torch.sum(valid), min=1)
+    n = torch.sum(valid)
+    return torch.sum(per_graph) / (torch.clamp(n, min=1) if den is None else den(n))

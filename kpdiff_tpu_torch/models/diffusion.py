@@ -23,6 +23,15 @@ fixed families read graph_cutoffs['rr'] wherever the learned ones read
 (`dynamics.kk_layout`). GVP models carry keypoint vectors (`kp_v`) from the
 encoder to the dynamics and apply their configured dropout in the training
 loss, with masks drawn from the loss's torch.Generator.
+
+`sample`, `loss` and `_apply_dynamics` take `kp_shard`, a
+parallel/kp_shard.py::ShardContext (None: one device, unchanged). Sampling
+is given this rank's part of an encoded complex (`shard_encoded`); the
+loss encodes its batch rows unsharded on every rank of the 'model' axis
+(so the OT loss sees every keypoint) and splits the keypoints after. The
+ligand is replicated over the 'model' axis, and its noise identical there;
+on the 'data' axis noise is drawn for the global batch and each rank takes
+its rows.
 """
 from __future__ import annotations
 
@@ -192,17 +201,28 @@ class KeypointDiffusion(nn.Module):
         return radius_neighbor_list(cpx.kp_x, cpx.kp_mask, cpx.kp_x, cpx.kp_mask, r, cap, exclude_self=True)
 
     def _apply_dynamics(self, dyn, lig_x, lig_h, lig_mask, kp_x, kp_h, kp_mask, t, kk, kp_v=None,
-                        dropout: bool = False, generator: Optional[torch.Generator] = None):
+                        dropout: bool = False, generator: Optional[torch.Generator] = None, kp_shard=None):
         if self.gvp:
             return dyn(lig_x, lig_h, lig_mask, kp_x, kp_h, kp_mask, t, kk, kp_v, dropout=dropout,
-                       generator=generator)
-        return dyn(lig_x, lig_h, lig_mask, kp_x, kp_h, kp_mask, t, kk)
+                       generator=generator, kp_shard=kp_shard)
+        return dyn(lig_x, lig_h, lig_mask, kp_x, kp_h, kp_mask, t, kk, kp_shard=kp_shard)
+
+    def kp_row_parameters(self):
+        """Parameters whose gradients a kp-sharded rank computes from its own
+        keypoint rows only (summed over the 'model' group by the trainer)."""
+        seen, out = set(), []
+        for mod in self.dynamics.kp_row_modules():
+            for p in mod.parameters():
+                if id(p) not in seen:
+                    seen.add(id(p))
+                    out.append(p)
+        return out
 
     # ------------------------------------------------------------------ loss
 
     def loss(self, cpx: PaddedComplex,
              t_eps_override: Optional[Tuple[Any, Any, Any]] = None,
-             generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+             generator: Optional[torch.Generator] = None, kp_shard=None) -> Dict[str, torch.Tensor]:
         """Training losses (kpdiff_tpu/models/diffusion.py:281-399): l2, pos,
         feat, rec_encoder and, with rl_dist_threshold > 0, rl_hinge.
 
@@ -211,15 +231,23 @@ class KeypointDiffusion(nn.Module):
         otherwise they come from `generator` (a torch.Generator on the
         complex's device). GVP models with dropout in their config draw its
         masks from `generator` too, as the JAX loss samples dropout on every
-        call (None: torch's default generator of the device)."""
+        call (None: torch's default generator of the device).
+
+        kp_shard (a ShardContext, kp_shard.py::kp_constraint): `cpx` holds
+        this rank's batch rows (and so does `t_eps_override`); the keypoints
+        are split over the 'model' axis after the encoder, and every loss is
+        this rank's part of the global batch's loss times the 'data' axis
+        size, so that their mean over the ranks is the global loss."""
         cfg = self.cfg
         b = cpx.batch_size
         dev = cpx.device
         f32 = torch.float32
 
+        sh = kp_shard
+        den = (lambda c: torch.clamp(c, min=1.0)) if sh is None else sh.mean_den
         cpx = cpx.replace(lig_h=cpx.lig_h / cfg.lig_feat_norm_constant)
         cpx, kk = self.encode(cpx, dropout=True, generator=generator)
-        losses: Dict[str, torch.Tensor] = {"rec_encoder": self._rec_encoder_loss(cpx)}
+        losses: Dict[str, torch.Tensor] = {"rec_encoder": self._rec_encoder_loss(cpx, sh)}
 
         lm = cpx.lig_mask[..., None].to(cpx.lig_x.dtype)
         km = cpx.kp_mask[..., None].to(cpx.kp_x.dtype)
@@ -234,10 +262,17 @@ class KeypointDiffusion(nn.Module):
                                    for a in t_eps_override)
             eps_x = eps_x.to(f32) * lm
             eps_h = eps_h.to(f32) * lm
-        else:
+        elif sh is None:
             t_int = torch.randint(0, cfg.n_timesteps, (b,), generator=generator, device=dev)
             eps_x = torch.randn(cpx.lig_x.shape, generator=generator, device=dev, dtype=f32) * lm
             eps_h = torch.randn(cpx.lig_h.shape, generator=generator, device=dev, dtype=f32) * lm
+        else:  # drawn for the global batch, this rank's rows taken
+            t_int = sh.local_batch(torch.randint(0, cfg.n_timesteps, sh.draw_shape((b,)), generator=generator,
+                                                 device=dev))
+            eps_x = sh.local_batch(torch.randn(sh.draw_shape(cpx.lig_x.shape), generator=generator, device=dev,
+                                               dtype=f32)) * lm
+            eps_h = sh.local_batch(torch.randn(sh.draw_shape(cpx.lig_h.shape), generator=generator, device=dev,
+                                               dtype=f32)) * lm
         t = t_int.to(f32) / cfg.n_timesteps
 
         gamma_t = self.schedule.gamma(t)
@@ -251,9 +286,12 @@ class KeypointDiffusion(nn.Module):
         kp_x = (kp_x - com2[:, None]) * km
 
         drop = self.gvp and self.cfg.dynamics.get("dropout", 0) > 0
-        eps_h_pred, eps_x_pred = self._apply_dynamics(self.dynamics, z_x, z_h, cpx.lig_mask, kp_x, cpx.kp_h,
-                                                      cpx.kp_mask, t, kk, cpx.kp_v, dropout=drop,
-                                                      generator=generator)
+        kp_in = cpx.replace(kp_x=kp_x)
+        if sh is not None:  # this rank's keypoint rows; the hinge below reads them all
+            kp_in, kk = sh.split(kp_in, kk)
+        eps_h_pred, eps_x_pred = self._apply_dynamics(self.dynamics, z_x, z_h, cpx.lig_mask, kp_in.kp_x, kp_in.kp_h,
+                                                      kp_in.kp_mask, t, kk, kp_in.kp_v, dropout=drop,
+                                                      generator=generator, kp_shard=sh)
 
         # torch.where (selection), not mask multiplication: repeat-padded batch
         # rows have empty masks, the dynamics may give NaN there (0/0), and
@@ -266,25 +304,27 @@ class KeypointDiffusion(nn.Module):
             else:
                 real = (cpx.lig_mask & (cpx.lig_h[..., -1] <= 0))[..., None]
             x_loss = torch.sum(torch.square(torch.where(real, eps_x - eps_x_pred, 0.0)))
-            n_x = torch.clamp(torch.sum(real.to(z_x.dtype)) * 3.0, min=1.0)
+            n_x = den(torch.sum(real.to(z_x.dtype)) * 3.0)
         else:
             x_loss = torch.sum(torch.square(torch.where(lig_sel, eps_x - eps_x_pred, 0.0)))
-            n_x = torch.clamp(torch.sum(lm) * 3.0, min=1.0)
+            n_x = den(torch.sum(lm) * 3.0)
         h_loss = torch.sum(torch.square(torch.where(lig_sel, eps_h - eps_h_pred, 0.0)))
-        n_h = torch.clamp(torch.sum(lm) * cpx.lig_h.shape[-1], min=1.0)
+        n_h = den(torch.sum(lm) * cpx.lig_h.shape[-1])
 
         losses["l2"] = (x_loss + h_loss) / (n_x + n_h)
         losses["pos"] = x_loss / n_x
         losses["feat"] = h_loss / n_h
         if cfg.rl_dist_threshold > 0:
-            losses["rl_hinge"] = self._rl_hinge(cpx, z_x, eps_x_pred, gamma_t, kp_x, init_kp_com)
+            hinge = self._rl_hinge(cpx, z_x, eps_x_pred, gamma_t, kp_x, init_kp_com)
+            losses["rl_hinge"] = hinge if sh is None else hinge * sh.data_size  # a sum over the batch
         return losses
 
-    def _rec_encoder_loss(self, cpx: PaddedComplex) -> torch.Tensor:
+    def _rec_encoder_loss(self, cpx: PaddedComplex, kp_shard=None) -> torch.Tensor:
         if self.rec_loss_type == "none":
             return torch.zeros((), dtype=cpx.rec_x.dtype, device=cpx.device)
         pts, pts_mask = (cpx.ip_x, cpx.ip_mask) if self.rec_loss_use_ip else (cpx.rec_x, cpx.rec_mask)
-        return ot_loss(cpx.kp_x, cpx.kp_mask, pts, pts_mask, **_ot_kwargs(self.rec_loss_kwargs))
+        return ot_loss(cpx.kp_x, cpx.kp_mask, pts, pts_mask, **_ot_kwargs(self.rec_loss_kwargs),
+                       den=None if kp_shard is None else kp_shard.mean_den)
 
     def _rl_hinge(self, cpx, z_x, eps_x_pred, gamma_t, kp_x, init_kp_com):
         """Receptor-ligand clash hinge on the one-shot denoised ligand, moved
@@ -320,7 +360,8 @@ class KeypointDiffusion(nn.Module):
     @torch.no_grad()
     def sample(self, cpx: PaddedComplex, kk_edges, init_com: Optional[torch.Tensor] = None,
                return_every: int = 0, sample_steps: int = 0, eta: float = 1.0,
-               noise: Optional[Dict[str, Any]] = None, generator: Optional[torch.Generator] = None):
+               noise: Optional[Dict[str, Any]] = None, generator: Optional[torch.Generator] = None,
+               kp_shard=None):
         """Reverse diffusion from encoded receptors.
 
         `sample_steps` K < T runs the strided grid; `eta` is the DDIM noise
@@ -328,7 +369,13 @@ class KeypointDiffusion(nn.Module):
         draw (keys init_x, init_h, steps_x (K,B,N,3), steps_h (K,B,N,F));
         otherwise noise comes from `generator` (a torch.Generator on the
         complex's device). Returns lig_x, lig_h, kp_x, lig_mask and, with
-        `return_every`, frames_x / frames_h."""
+        `return_every`, frames_x / frames_h.
+
+        kp_shard: the ShardContext of `shard_encoded` (or `data_shard`), whose
+        complex and kk hold this rank's rows. Every rank of the 'model' axis
+        needs a generator in the same state; `noise` may hold the global
+        batch (each rank takes its rows) or this rank's rows. kp_x comes
+        back with every (padded) keypoint."""
         cfg = self.cfg
         dev = cpx.device
         b = cpx.batch_size
@@ -337,13 +384,21 @@ class KeypointDiffusion(nn.Module):
         lm = cpx.lig_mask[..., None].to(f32)
         km = cpx.kp_mask[..., None].to(f32)
 
-        def tensor(a):
-            return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a, device=dev).to(f32)
+        sh = kp_shard
+
+        def tensor(a, batch_dim=0):
+            a = torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a, device=dev).to(f32)
+            return a if sh is None else sh.local_batch(a, batch_dim)
 
         def randn(shape):
-            return torch.randn(shape, generator=generator, device=dev, dtype=f32)
+            if sh is None:
+                return torch.randn(shape, generator=generator, device=dev, dtype=f32)
+            return sh.local_batch(torch.randn(sh.draw_shape(shape), generator=generator, device=dev, dtype=f32))
 
-        init_kp_com = masked_com(cpx.kp_x, cpx.kp_mask)
+        def kp_com(kp_x):
+            return masked_com(kp_x, cpx.kp_mask) if sh is None else sh.masked_com(kp_x, cpx.kp_mask)
+
+        init_kp_com = kp_com(cpx.kp_x)
         if init_com is None:
             any_rec = torch.any(cpx.rec_mask, dim=1, keepdim=True)
             init_com = torch.where(any_rec, masked_com(cpx.rec_x, cpx.rec_mask), init_kp_com)
@@ -368,7 +423,7 @@ class KeypointDiffusion(nn.Module):
             grid = np.arange(T, -1, -1)
         steps = np.stack([grid[:-1], grid[1:]], axis=1)
         if noise is not None:
-            steps_x, steps_h = tensor(noise["steps_x"]), tensor(noise["steps_h"])
+            steps_x, steps_h = tensor(noise["steps_x"], 1), tensor(noise["steps_h"], 1)
 
         frames = []
         for i, (t_int, s_int) in enumerate(steps.tolist()):
@@ -381,7 +436,7 @@ class KeypointDiffusion(nn.Module):
             sigma_t = sigma_from_gamma(gamma_t)
 
             eps_h, eps_x = self._apply_dynamics(dyn, lig_x, lig_h, cpx.lig_mask, kp_x, cpx.kp_h, cpx.kp_mask, t_arr,
-                                                kk_edges, cpx.kp_v)
+                                                kk_edges, cpx.kp_v, kp_shard=sh)
 
             if eta == 1.0:
                 # reference ancestral step, kept verbatim
@@ -414,9 +469,11 @@ class KeypointDiffusion(nn.Module):
             if return_every and i % return_every == 0:
                 frames.append((lig_x, lig_h, kp_x))
 
-        kp_com = masked_com(kp_x, cpx.kp_mask)
-        lig_x = (lig_x - kp_com[:, None] + init_kp_com[:, None]) * lm
-        kp_x = (kp_x - kp_com[:, None] + init_kp_com[:, None]) * km
+        final_com = kp_com(kp_x)
+        lig_x = (lig_x - final_com[:, None] + init_kp_com[:, None]) * lm
+        kp_x = (kp_x - final_com[:, None] + init_kp_com[:, None]) * km
+        if sh is not None:
+            kp_x = sh.gather(kp_x)
         lig_h = lig_h * cfg.lig_feat_norm_constant
 
         out = {"lig_x": lig_x, "lig_h": lig_h, "kp_x": kp_x, "lig_mask": cpx.lig_mask}
@@ -426,7 +483,7 @@ class KeypointDiffusion(nn.Module):
             f_x = torch.stack([f[0] for f in frames])
             f_h = torch.stack([f[1] for f in frames])
             f_kp = torch.stack([f[2] for f in frames])
-            f_kp_com = torch.stack([masked_com(k, cpx.kp_mask) for k in f_kp])  # (F, B, 3)
+            f_kp_com = torch.stack([kp_com(k) for k in f_kp])  # (F, B, 3)
             out["frames_x"] = (f_x - f_kp_com[:, :, None] + init_kp_com[None, :, None]) * lm[None]
             out["frames_h"] = f_h * cfg.lig_feat_norm_constant
         return out

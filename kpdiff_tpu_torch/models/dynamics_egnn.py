@@ -22,6 +22,14 @@ under either layout, with the same parameters, so one archive loads under
 both. While autograd records they take the kernel's plain version. `remat`
 recomputes each conv layer in the backward pass (torch.utils.checkpoint),
 storing only the layer boundaries.
+
+With `kp_shard` (parallel/kp_shard.py::ShardContext) the keypoint tensors
+are this rank's rows: kl messages into the replicated ligand are partial
+over the rank's keypoint sources and summed over the 'model' group, kk
+takes every keypoint as a source (gathered h and x; a dense kk arrives as
+(B, K, K/n), a neighbor list indexes the global rows, the block layout
+runs on the gathered keypoints and keeps its rows), lk and the keypoint
+update stay local, and the message_norm 0 counts are summed over the group.
 """
 from __future__ import annotations
 
@@ -79,33 +87,42 @@ class EGNNConvLayer(nn.Module):
                               adj.reshape(b * nt, w, tile))
         return dh.reshape(b, nt * tile, f), dx.reshape(b, nt * tile, 3)
 
-    def forward(self, h, x, edges, z, masks):
+    def forward(self, h, x, edges, z, masks, kp_shard=None):
         agg_h = {"lig": 0.0, "kp": 0.0}
         agg_x = {"lig": 0.0, "kp": 0.0}
+        sh = kp_shard
 
         def add(dst, out):
             agg_h[dst] = agg_h[dst] + out[0]
             agg_x[dst] = agg_x[dst] + out[1]
 
         add("lig", self.edge_ll(h["lig"], h["lig"], x["lig"], x["lig"], edges["ll"]))
+        # the replicated ligand as the keypoint edges of this rank see it
+        h_lig, x_lig = (h["lig"], x["lig"]) if sh is None else sh.enter(h["lig"], x["lig"])
         if self.dense_kl:
-            add("lig", self.edge_kl(h["kp"], h["lig"], x["kp"], x["lig"], edges["kl"]))
+            kl = self.edge_kl(h["kp"], h_lig, x["kp"], x_lig, edges["kl"])
         else:
             idx, valid = edges["kl_pairs"]
-            add("lig", self.edge_kl(h["kp"], h["lig"], x["kp"], x["lig"], idx, valid))
+            kl = self.edge_kl(h["kp"], h_lig, x["kp"], x_lig, idx, valid)
+        add("lig", kl if sh is None else sh.reduce(*kl))
         if self.update_kp_feat:
             if self.dense_kl:
-                add("kp", self.edge_lk(h["lig"], h["kp"], x["lig"], x["kp"], edges["lk"]))
+                add("kp", self.edge_lk(h_lig, h["kp"], x_lig, x["kp"], edges["lk"]))
             else:
-                add("kp", self.edge_lk(h["kp"], h["lig"], x["kp"], x["lig"], idx, valid))
+                add("kp", self.edge_lk(h["kp"], h_lig, x["kp"], x_lig, idx, valid))
             kk = edges["kk"]
+            h_src, x_src = (h["kp"], x["kp"]) if sh is None else sh.gather(h["kp"], x["kp"])
             if isinstance(kk, dict):
-                add("kp", self._block_kk(h["kp"], x["kp"], kk["block"]))
+                out = self._block_kk(h_src, x_src, kk["block"])
+                if sh is not None:
+                    lo, hi = sh.bounds(h_src.shape[1])
+                    out = (out[0][:, lo:hi], out[1][:, lo:hi])
+                add("kp", out)
             elif isinstance(kk, tuple):
                 idx, valid = kk
-                add("kp", self.kk_nbr(h["kp"], h["kp"], x["kp"], x["kp"], idx, valid))
+                add("kp", self.kk_nbr(h_src, h["kp"], x_src, x["kp"], idx, valid))
             else:
-                add("kp", self.edge_kk(h["kp"], h["kp"], x["kp"], x["kp"], kk))
+                add("kp", self.edge_kk(h_src, h["kp"], x_src, x["kp"], kk))
 
         updated = ["lig", "kp"] if self.update_kp_feat else ["lig"]
         h_out, x_out = dict(h), dict(x)
@@ -145,7 +162,18 @@ class EGNNDynamics(nn.Module):
                 dtype=compute_dtype, dense_kl=kl_k <= 0))
         self.lig_decoder = MLP(hidden_nf, [2 * atom_nf, atom_nf], ["silu", ""], gen)
 
-    def forward(self, lig_x, lig_h, lig_mask, kp_x, kp_h, kp_mask, t, kk_edges=None):
+    def kp_row_modules(self):
+        """The modules that run on a kp-sharded rank's keypoint rows only: their
+        parameter gradients are partial over the 'model' group."""
+        mods = [] if self.kp_encoder is None else [self.kp_encoder]
+        for i in range(self.n_layers):
+            conv = getattr(self, f"conv{i}")
+            mods += [getattr(conv, n) for n in ("edge_kl", "edge_lk", "edge_kk", "update_kp") if hasattr(conv, n)]
+        return mods
+
+    def forward(self, lig_x, lig_h, lig_mask, kp_x, kp_h, kp_mask, t, kk_edges=None, kp_shard=None):
+        """kp_shard: a ShardContext when the keypoint tensors are this rank's rows."""
+        sh = kp_shard
         b, nl = lig_mask.shape
         k = kp_mask.shape[1]
         lig_feat = self.lig_encoder(lig_h)
@@ -179,16 +207,22 @@ class EGNNDynamics(nn.Module):
         if self.message_norm == 0 and self.z_semantics == "executed":
             z["lig"] = z["kp"] = 1.0
         elif self.message_norm == 0:
+            if sh is not None:
+                e_kl = sh.count(e_kl)
             n_lig = torch.clamp(torch.sum(lig_mask, dim=1), min=1)
             e_lig = torch.sum(ll, dim=(1, 2)) + e_kl
             z["lig"] = (e_lig / n_lig + 1.0)[:, None, None]
             if self.update_kp_feat:
-                n_kp = torch.clamp(torch.sum(kp_mask, dim=1), min=1)
+                n_kp = torch.sum(kp_mask, dim=1)
                 kk = edges["kk"]
-                if isinstance(kk, dict):
+                if isinstance(kk, dict):  # whole on every rank
                     e_kk = torch.sum(kk["block"], dim=(1, 2, 3))
                 else:
                     e_kk = torch.sum(kk[1] if isinstance(kk, tuple) else kk, dim=(1, 2))
+                if sh is not None:
+                    n_kp = sh.count(n_kp)
+                    e_kk = e_kk if isinstance(kk, dict) else sh.count(e_kk)
+                n_kp = torch.clamp(n_kp, min=1)
                 z["kp"] = ((e_kl + e_kk) / n_kp + 1.0)[:, None, None]
             else:
                 z["kp"] = 1.0
@@ -204,9 +238,9 @@ class EGNNDynamics(nn.Module):
                 h["kp"], x["kp"] = kp_h0, kp_x0
             conv = getattr(self, f"conv{i}")
             if self.remat and torch.is_grad_enabled():
-                h, x = checkpoint(conv, h, x, edges, z, masks, use_reentrant=False)
+                h, x = checkpoint(conv, h, x, edges, z, masks, sh, use_reentrant=False)
             else:
-                h, x = conv(h, x, edges, z, masks)
+                h, x = conv(h, x, edges, z, masks, sh)
 
         eps_h = self.lig_decoder(h["lig"][..., :-1])
         eps_x = x["lig"] - lig_x

@@ -16,6 +16,14 @@ block layout {'block': adj}. Every GVP runs in plain PyTorch: there is no TPU ke
 this path. Dropout (training only) draws its masks from a torch.Generator
 before each conv, so that `remat` (torch.utils.checkpoint per conv)
 recomputes the backward with the same masks.
+
+With `kp_shard` (parallel/kp_shard.py::ShardContext) the keypoint tensors
+are this rank's rows, as in the EGNN dynamics: kl messages into the
+ligand (sums, and the counts of 'mean') are summed over the 'model' group,
+kk takes the gathered keypoints as sources (the block layout runs on them
+whole and keeps this rank's rows), lk and the keypoint updates stay local,
+and the message_norm 0 counts are summed over the group. Keypoint dropout
+masks are drawn for every keypoint and sliced, as the unsharded run draws them.
 """
 from __future__ import annotations
 
@@ -79,7 +87,7 @@ class GVPMultiEdgeConv(nn.Module):
                                                         dtype=dtype))
             self.add_module(f"upd_norm_{ntype}", GVPLayerNorm(scalar_size))
 
-    def dropout_masks(self, node_data, gen: Optional[torch.Generator]):
+    def dropout_masks(self, node_data, gen: Optional[torch.Generator], kp_shard=None):
         """Keep masks of this conv's dropout: per destination node type, one
         pair for the aggregated messages and one for the update's residual."""
         if self.dropout <= 0:
@@ -87,18 +95,30 @@ class GVPMultiEdgeConv(nn.Module):
         out = {}
         for ntype in self.dst_ntypes:
             h, _, v = node_data[ntype]
-            out[ntype] = (gvp_dropout_masks(gen, h, v, self.dropout), gvp_dropout_masks(gen, h, v, self.dropout))
+            if ntype == "kp" and kp_shard is not None and kp_shard.sharded:
+                k = h.shape[1] * kp_shard.size
+                h, v = h.new_empty((h.shape[0], k) + h.shape[2:]), v.new_empty((v.shape[0], k) + v.shape[2:])
+                lo, hi = kp_shard.bounds(k)
+                out[ntype] = tuple(tuple(m[:, lo:hi] for m in gvp_dropout_masks(gen, h, v, self.dropout))
+                                   for _ in range(2))
+            else:
+                out[ntype] = (gvp_dropout_masks(gen, h, v, self.dropout), gvp_dropout_masks(gen, h, v, self.dropout))
         return out
 
-    def _edge(self, src, ename, dst, node_data, a):
+    def _edge(self, src, ename, dst, node_data, a, kp_src=None, reduce=None):
+        """kp_src: the keypoints as kk sources (a kp-sharded rank's gathered
+        rows); reduce: the kl sums' collective (ShardContext.reduce)."""
         mod = getattr(self, f"message_{ename}")
-        h_s, x_s, v_s = node_data[src]
+        h_s, x_s, v_s = kp_src if (kp_src is not None and src == dst == "kp") else node_data[src]
         h_d, x_d, v_d = node_data[dst]
         if isinstance(a, PairList):
             h_a, x_a, v_a = node_data["kp"]
             h_o, x_o, v_o = node_data["lig"]
-            return mod.pairs(h_a, v_a, x_a, h_o, v_o, x_o, a.idx, a.valid, anchor_is_src=src == "kp")
+            return mod.pairs(h_a, v_a, x_a, h_o, v_o, x_o, a.idx, a.valid, anchor_is_src=src == "kp",
+                             reduce=reduce)
         if isinstance(a, dict):
+            if kp_src is not None:  # the block layout runs on every keypoint
+                h_d, x_d, v_d = kp_src
             blk = a["block"]
             b, nt, w, tile = blk.shape
             S, V = h_s.shape[-1], v_s.shape[-2]
@@ -110,15 +130,32 @@ class GVPMultiEdgeConv(nn.Module):
             return ds.reshape(b, nt * tile, S), dv.reshape(b, nt * tile, V, 3)
         if isinstance(a, tuple):
             return mod.nbr(h_s, v_s, x_s, h_d, v_d, x_d, *a)
-        return mod.dense(h_s, v_s, x_s, h_d, v_d, x_d, a)
+        return mod.dense(h_s, v_s, x_s, h_d, v_d, x_d, a, reduce=reduce)
 
-    def forward(self, node_data, adj, masks, drop=None):
+    def forward(self, node_data, adj, masks, drop=None, kp_shard=None):
         """node_data: ntype -> (scalars, positions, vectors); drop: the masks
-        of `dropout_masks`, or None (no dropout)."""
+        of `dropout_masks`, or None (no dropout); kp_shard: a ShardContext
+        when the keypoint tensors are this rank's rows."""
         agg_s = {n: 0.0 for n in self.dst_ntypes}
         agg_v = {n: 0.0 for n in self.dst_ntypes}
+        sh = kp_shard
+        data, kp_src = node_data, None
+        if sh is not None:
+            # the replicated ligand as the keypoint edges of this rank see it
+            data = dict(node_data, lig=sh.enter(*node_data["lig"]))
+            if any(e[0] == e[2] == "kp" for e in self.etypes):
+                kp_src = sh.gather(*node_data["kp"])
         for src, ename, dst in self.etypes:
-            ds, dv = self._edge(src, ename, dst, node_data, adj[ename])
+            if sh is None:
+                ds, dv = self._edge(src, ename, dst, node_data, adj[ename])
+            elif src == dst == "lig":
+                ds, dv = self._edge(src, ename, dst, node_data, adj[ename])
+            else:
+                ds, dv = self._edge(src, ename, dst, data, adj[ename], kp_src=kp_src,
+                                    reduce=sh.reduce if dst == "lig" else None)
+                if isinstance(adj[ename], dict):
+                    lo, hi = sh.bounds(kp_src[0].shape[1])
+                    ds, dv = ds[:, lo:hi], dv[:, lo:hi]
             agg_s[dst] = agg_s[dst] + ds
             agg_v[dst] = agg_v[dst] + dv
 
@@ -128,8 +165,15 @@ class GVPMultiEdgeConv(nn.Module):
             if self.message_norm == "mean":
                 s_msg, v_msg = agg_s[ntype], agg_v[ntype]
             elif self.message_norm == 0:
-                n_nodes = torch.clamp(torch.sum(masks[ntype], dim=1), min=1).float()
-                n_edges = sum(_edge_count(adj[e[1]]) for e in self.etypes if e[2] == ntype)
+                n_nodes = torch.sum(masks[ntype], dim=1)
+                counts = [_edge_count(adj[e[1]]) for e in self.etypes if e[2] == ntype]
+                if sh is not None:  # edges with a keypoint end are this rank's; a block kk is whole
+                    if ntype == "kp":
+                        n_nodes = sh.count(n_nodes)
+                    counts = [c if (e[0] == e[2] == "lig" or isinstance(adj[e[1]], dict)) else sh.count(c)
+                              for c, e in zip(counts, [e for e in self.etypes if e[2] == ntype])]
+                n_nodes = torch.clamp(n_nodes, min=1).float()
+                n_edges = sum(counts)
                 norm = (n_edges / n_nodes + 1.0)[:, None, None]
                 s_msg, v_msg = agg_s[ntype] / norm, agg_v[ntype] / norm[..., None]
             else:
@@ -200,10 +244,21 @@ class GVPDynamics(nn.Module):
                 message_norm=message_norm, dropout=dropout, dtype=compute_dtype))
         self.noise_predictor = NoisePredictionBlock(H, n_lig_scalars, vector_size, gen, n_gvps=n_noise_gvps)
 
+    def kp_row_modules(self):
+        """The modules that run on a kp-sharded rank's keypoint rows only: their
+        parameter gradients are partial over the 'model' group."""
+        mods = [self.kp_enc, self.LayerNorm_1]
+        for i in range(self.n_convs):
+            conv = getattr(self, f"conv{i}")
+            mods += [getattr(conv, n) for n in ("message_kl", "message_lk", "message_kk", "msg_norm_kp",
+                                                "update_kp", "upd_norm_kp") if hasattr(conv, n)]
+        return mods
+
     def forward(self, lig_x, lig_h, lig_mask, kp_x, kp_h, kp_mask, t, kk_edges=None, kp_v=None,
-                dropout: bool = False, generator: Optional[torch.Generator] = None):
+                dropout: bool = False, generator: Optional[torch.Generator] = None, kp_shard=None):
         """-> (eps_h, eps_x). dropout=True (the training loss) applies the
-        configured dropout with masks drawn from `generator`."""
+        configured dropout with masks drawn from `generator`; kp_shard: a
+        ShardContext when the keypoint tensors are this rank's rows."""
         b, nl = lig_mask.shape
         k = kp_mask.shape[1]
         t_col = t[:, None, None]
@@ -235,11 +290,11 @@ class GVPDynamics(nn.Module):
         masks = {"lig": lig_mask, "kp": kp_mask}
         for i in range(self.n_convs):
             conv = getattr(self, f"conv{i}")
-            drop = conv.dropout_masks(node_data, generator) if dropout else None
+            drop = conv.dropout_masks(node_data, generator, kp_shard) if dropout else None
             if self.remat and torch.is_grad_enabled():
-                node_data = checkpoint(conv, node_data, adj, masks, drop, use_reentrant=False)
+                node_data = checkpoint(conv, node_data, adj, masks, drop, kp_shard, use_reentrant=False)
             else:
-                node_data = conv(node_data, adj, masks, drop)
+                node_data = conv(node_data, adj, masks, drop, kp_shard)
 
         lig_s, _, lig_v = node_data["lig"]
         eps_h, eps_x = self.noise_predictor(lig_s, lig_v)

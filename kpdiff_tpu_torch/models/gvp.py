@@ -279,16 +279,22 @@ class GVPEdgeMessages(nn.Module):
             scalars.append(h_dst)
         return self.message(scalars, vectors)
 
-    def dense(self, h_src, v_src, x_src, h_dst, v_dst, x_dst, adj, edge_feat=None):
-        """Messages over a dense (B, Ns, Nd) adjacency -> (B, Nd, S), (B, Nd, V, 3) in f32."""
+    def dense(self, h_src, v_src, x_src, h_dst, v_dst, x_dst, adj, edge_feat=None, reduce=None):
+        """Messages over a dense (B, Ns, Nd) adjacency -> (B, Nd, S), (B, Nd, V, 3) in f32.
+        `reduce(sum_s, sum_v, count)` (a kp-sharded rank's partial sums over
+        its sources) runs on the sums and the mean's counts before the mean."""
         diff = x_src[:, :, None, :] - x_dst[:, None, :, :]
         ms, mv = self._messages(diff, adj, h_src[:, :, None], v_src[:, :, None], h_dst[:, None], v_dst[:, None],
                                 edge_feat)
         a = adj.to(torch.float32)
         agg_s = torch.einsum("bsd,bsdf->bdf", a, ms.float())
         agg_v = torch.einsum("bsd,bsdvc->bdvc", a, mv.float())
+        if reduce is not None:
+            agg_s, agg_v, cnt = reduce(agg_s, agg_v, torch.sum(a, dim=1) if self.agg == "mean" else None)
+        elif self.agg == "mean":
+            cnt = torch.sum(a, dim=1)  # (B, Nd)
         if self.agg == "mean":
-            cnt = torch.clamp(torch.sum(a, dim=1), min=1.0)  # (B, Nd)
+            cnt = torch.clamp(cnt, min=1.0)
             agg_s, agg_v = agg_s / cnt[..., None], agg_v / cnt[..., None, None]
         return agg_s, agg_v
 
@@ -309,10 +315,12 @@ class GVPEdgeMessages(nn.Module):
                                 h_dst[:, :, None], v_dst[:, :, None], edge_feat)
         return self._sum_over_k(ms, mv, nbr_valid)
 
-    def pairs(self, h_anchor, v_anchor, x_anchor, h_other, v_other, x_other, idx, valid, anchor_is_src: bool):
+    def pairs(self, h_anchor, v_anchor, x_anchor, h_other, v_other, x_other, idx, valid, anchor_is_src: bool,
+              reduce=None):
         """Messages over a kNN pair list idx (B, K, k) into the other node set.
         anchor_is_src (kl): the anchor sends and the messages are summed onto
-        the gathered nodes; otherwise (lk) the gathered nodes send to the anchor."""
+        the gathered nodes; otherwise (lk) the gathered nodes send to the anchor.
+        `reduce` as in `dense` (kl only)."""
         b, K, k = idx.shape
         n_other = h_other.shape[1]
         h_g, x_g, v_g = gather_rows(h_other, idx), gather_rows(x_other, idx), gather_rows(v_other, idx)
@@ -332,8 +340,13 @@ class GVPEdgeMessages(nn.Module):
         agg_s = agg_s.scatter_add_(1, flat.expand_as(msg_s), msg_s)
         agg_v = torch.zeros((b, n_other, msg_v.shape[-1]), dtype=torch.float32, device=ms.device)
         agg_v = agg_v.scatter_add_(1, flat.expand_as(msg_v), msg_v).reshape(b, n_other, *mv.shape[3:])
+        cnt = None
         if self.agg == "mean":
             cnt = torch.zeros((b, n_other), dtype=torch.float32, device=ms.device)
-            cnt = torch.clamp(cnt.scatter_add_(1, flat[..., 0], valid.reshape(b, K * k).float()), min=1.0)
+            cnt = cnt.scatter_add_(1, flat[..., 0], valid.reshape(b, K * k).float())
+        if reduce is not None:
+            agg_s, agg_v, cnt = reduce(agg_s, agg_v, cnt)
+        if self.agg == "mean":
+            cnt = torch.clamp(cnt, min=1.0)
             agg_s, agg_v = agg_s / cnt[..., None], agg_v / cnt[..., None, None]
         return agg_s, agg_v

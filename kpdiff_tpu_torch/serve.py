@@ -18,30 +18,32 @@ way out and molecules that fail to build are dropped.
 Known difference from the JAX sampler: a chunk holds only the molecules it
 samples, where the JAX one repeat-pads every chunk to `batch_size` to reuse
 one compiled executable.
+
+`kp_shard_devices=n > 1` splits every chunk's keypoints over n devices, one
+rank each (parallel/kp_shard.py): rank 0 holds the requests and the front
+end, encodes each chunk and broadcasts the encoded complex; the other ranks
+are workers that sample it in lockstep (`worker_loop`) until rank 0's
+`close()`. Outside a process group the sampler starts its n - 1 workers
+itself and joins them as rank 0; inside one (torchrun) every rank builds
+the sampler and the ranks other than 0 call `worker_loop()`.
 """
 from __future__ import annotations
 
 import dataclasses
+import shutil
 import time
 from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from kpdiff_tpu_torch.analysis.molecule_builder import BuiltMolecule, build_molecule
 from kpdiff_tpu_torch.config import PaddingConfig, load_config, model_from_config, resolve_feature_sizes
 from kpdiff_tpu_torch.data.padding import pad_item, to_complex
 from kpdiff_tpu_torch.device import resolve_device
 from kpdiff_tpu_torch.utils.params_io import load_params, read_keystr_npz
-
-
-def check_parallelism(n_devices: int = 1, kp_shard_devices: int = 0, shard_mode: str = "data") -> None:
-    """The port samples on one device: anything else raises."""
-    if n_devices != 1 or kp_shard_devices not in (0, 1) or shard_mode != "data":
-        raise NotImplementedError(
-            f"n_devices={n_devices} kp_shard_devices={kp_shard_devices} shard_mode={shard_mode!r}: multi-device "
-            "sampling (data parallel, keypoint sharding) is not ported yet; pass 1, 0 and 'data'")
 
 
 def decode_ligands(out, lig_elements: List[str]):
@@ -82,30 +84,114 @@ class KeypointSampler:
         strided sampling with K < n_timesteps steps, 0 = the full chain; eta:
         DDIM noise scale, 1.0 = the ancestral chain; lig_buckets: ascending
         ligand padding buckets ending at padding.n_lig (None: the config's
-        explicit list, else multiples of 8). Raises when CUDA is missing
-        unless device='cpu'."""
-        check_parallelism(kp_shard_devices=kp_shard_devices)
-        config, model = load_run_model(model_dir, checkpoint_step, device=device, seed=seed)
-        self._setup(config, model, Path(model_dir), batch_size, seed, sample_steps, eta, lig_buckets)
+        explicit list, else multiples of 8); kp_shard_devices: n > 1 splits
+        the keypoints over n devices (rank 0 front end, worker ranks: see the
+        module docstring; `close()` releases them). Raises when CUDA is
+        missing unless device='cpu'."""
+        kw = dict(model_dir=model_dir, checkpoint_step=checkpoint_step, batch_size=batch_size, seed=seed,
+                  sample_steps=sample_steps, eta=eta, lig_buckets=lig_buckets, device=device)
+        mesh = self._join(kp_shard_devices, device, kw)
+        try:
+            config, model = load_run_model(model_dir, checkpoint_step, device=mesh.device if mesh else device,
+                                           seed=seed)
+        except BaseException:
+            self._leave()
+            raise
+        self._setup(config, model, Path(model_dir), batch_size, seed, sample_steps, eta, lig_buckets, mesh)
 
     @classmethod
     def from_params(cls, config_path: str | Path, params_npz: Optional[str | Path], batch_size: int = 64,
                     device: str = "cuda", seed: int = 0, sample_steps: int = 0, eta: float = 1.0,
-                    lig_buckets: Optional[List[int]] = None) -> "KeypointSampler":
+                    lig_buckets: Optional[List[int]] = None, kp_shard_devices: int = 0) -> "KeypointSampler":
         """Model from `config_path` with weights from a keystr npz (the JAX
         package's export format); `params_npz=None` keeps the weights
-        initialised from `seed`. Raises when CUDA is missing unless
-        device='cpu'."""
-        config = load_config(config_path)
-        model = model_from_config(config, device=device, seed=seed)
-        if params_npz is not None:
-            load_params(model, read_keystr_npz(params_npz))
-        model.eval()
+        initialised from `seed`; kp_shard_devices as in the constructor.
+        Raises when CUDA is missing unless device='cpu'."""
         self = cls.__new__(cls)
-        self._setup(config, model, Path(config_path).parent, batch_size, seed, sample_steps, eta, lig_buckets)
+        kw = dict(config_path=config_path, params_npz=params_npz, batch_size=batch_size, device=device, seed=seed,
+                  sample_steps=sample_steps, eta=eta, lig_buckets=lig_buckets)
+        mesh = self._join(kp_shard_devices, device, kw)
+        try:
+            config = load_config(config_path)
+            model = model_from_config(config, device=mesh.device if mesh else device, seed=seed)
+            if params_npz is not None:
+                load_params(model, read_keystr_npz(params_npz))
+        except BaseException:
+            self._leave()
+            raise
+        model.eval()
+        self._setup(config, model, Path(config_path).parent, batch_size, seed, sample_steps, eta, lig_buckets, mesh)
         return self
 
-    def _setup(self, config, model, model_dir, batch_size, seed, sample_steps, eta, lig_buckets):
+    # ------------------------------------------------------- keypoint sharding
+
+    def _join(self, n: int, device: str, ctor_kwargs: dict):
+        """The 'model' mesh of kp_shard_devices=n > 1 (None for one device).
+        Outside a process group, start the n - 1 workers and join them as rank 0."""
+        from kpdiff_tpu_torch.parallel import distributed as pdist
+        from kpdiff_tpu_torch.parallel.mesh import make_mesh
+
+        self._workers, self._store, self._closed = [], None, False
+        if n <= 1:
+            return None
+        if not pdist.join_launcher_group(device):
+            self._workers, self._store = _start_workers(n, device, ctor_kwargs)
+        try:
+            return make_mesh(n, ("model",), device=device)
+        except BaseException:
+            self._leave()  # a group this sampler made must not outlive it
+            raise
+
+    @property
+    def rank(self) -> int:
+        """This process's rank on the sampler's mesh (0: the front end)."""
+        return 0 if self._mesh is None else self._mesh.index("model")
+
+    def _bcast(self, obj=None):
+        """Rank 0's object on every rank (tensors travel on the CPU)."""
+        box = [obj]
+        dist.broadcast_object_list(box, src=0, group=self._mesh.world,
+                                   device=self.device if self.device.type == "cuda" else None)
+        return box[0]
+
+    def worker_loop(self):
+        """A worker rank: sample each chunk rank 0 broadcasts, until it closes."""
+        while True:
+            msg = self._bcast()
+            if msg is None:
+                break
+            enc, kk, init_com = _to_device(msg, self.device)
+            self._sample_sharded(enc, kk, init_com)
+        self._leave()
+
+    def close(self):
+        """Rank 0: release the workers (and the group the sampler made)."""
+        if self._mesh is None or self._closed or self.rank != 0:
+            return
+        self._bcast(None)
+        self._leave()
+
+    def _leave(self):
+        self._closed = True
+        for p in self._workers:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+        if self._store is not None:  # the group this sampler made
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            shutil.rmtree(self._store, ignore_errors=True)
+            self._store = None
+
+    def _sample_sharded(self, enc, kk, init_com):
+        from kpdiff_tpu_torch.parallel.kp_shard import shard_encoded
+
+        enc, kk, shard = shard_encoded(enc, kk, self._mesh, axis="model")
+        return self.model.sample(enc, kk, init_com=init_com, sample_steps=self.sample_steps, eta=self.eta,
+                                 generator=self._gen, kp_shard=shard)
+
+    def _setup(self, config, model, model_dir, batch_size, seed, sample_steps, eta, lig_buckets, mesh=None):
+        self._mesh = mesh
         self.config = config
         self.model = model
         self.model_dir = model_dir
@@ -146,8 +232,12 @@ class KeypointSampler:
         kk = self.model.compact_kk(enc, kk, min_cap=self._kk_cap)
         if isinstance(kk, tuple):
             self._kk_cap = max(self._kk_cap, int(kk[0].shape[-1]))
-        out = self.model.sample(enc, kk, init_com=init_com, sample_steps=self.sample_steps, eta=self.eta,
-                                generator=self._gen)
+        if self._mesh is None:
+            out = self.model.sample(enc, kk, init_com=init_com, sample_steps=self.sample_steps, eta=self.eta,
+                                    generator=self._gen)
+        else:
+            self._bcast(_to_device((enc, kk, init_com), "cpu"))
+            out = self._sample_sharded(enc, kk, init_com)
         return out, (f"nbr{int(kk[0].shape[-1])}" if isinstance(kk, tuple) else "dense")
 
     # ------------------------------------------------------------------ API
@@ -246,3 +336,46 @@ class KeypointSampler:
             done += bs
         self.last_request = stats
         return mols
+
+
+def _to_device(obj, device):
+    """Tensors of a (nested) tuple or PaddedComplex moved to `device`."""
+    from kpdiff_tpu_torch.models.complex import PaddedComplex
+
+    if isinstance(obj, PaddedComplex):
+        return obj.to(device)
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_to_device(o, device) for o in obj)
+    return obj.to(device) if torch.is_tensor(obj) else obj
+
+
+def _sampler_worker(rank: int, ctor_kwargs: dict):
+    """A worker rank of a sampler that started its own group: build it, sample until rank 0 closes."""
+    sampler = (KeypointSampler.from_params(**ctor_kwargs) if "config_path" in ctor_kwargs
+               else KeypointSampler(**ctor_kwargs))
+    sampler.worker_loop()
+
+
+def _start_workers(n: int, device: str, ctor_kwargs: dict):
+    """Start ranks 1..n-1 of a new group as sampler workers and join it as rank 0;
+    returns the processes and the rendezvous directory."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from kpdiff_tpu_torch.parallel.distributed import DEFAULT_TIMEOUT, _rank_main, _set_cuda_device, backend_for
+
+    store = tempfile.mkdtemp(prefix="kpdiff_serve_")
+    init = "file://" + os.path.join(store, "store")
+    ctx = mp.get_context("spawn")
+    kw = dict(ctor_kwargs, kp_shard_devices=n)
+    procs = [ctx.Process(target=_rank_main, daemon=True,
+                         args=(r, _sampler_worker, n, init, device, DEFAULT_TIMEOUT, None, (kw,)))
+             for r in range(1, n)]
+    for p in procs:
+        p.start()
+    if torch.device(device).type == "cuda":
+        _set_cuda_device(0)
+    dist.init_process_group(backend_for(device), init_method=init, world_size=n, rank=0, timeout=DEFAULT_TIMEOUT)
+    return procs, store

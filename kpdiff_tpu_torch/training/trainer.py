@@ -10,6 +10,22 @@ every update. The loss is l2 + w_rec * rec_encoder (+ w_rl * rl_hinge).
 A step whose loss or gradients are not finite is skipped: the parameters
 and Adam's moments and count stay as they were, and the step counter
 advances.
+
+Given a mesh (parallel/mesh.py), the step is data parallel over its 'data'
+axis: each rank passes its rows of the global batch (with grad_accum,
+its rows of each micro-batch: `mesh.shard_batch(..., micro_batches=
+grad_accum)`, so that its micro-batch i is its share of the global
+micro-batch i), the loss is each rank's part of the global loss (kp_shard.py::ShardContext.mean_den), and
+the flattened gradients are all-reduced over the 'data' group and divided
+by its size, which is the gradient of the global batch's loss. With
+`kp_axis`, the keypoints are split over that axis too (dp x mp): the
+gradients of the parameters that run on a rank's keypoint rows
+(`KeypointDiffusion.kp_row_parameters`) are summed over the 'model' group
+first; the ligand and encoder paths' gradients are whole on every rank
+already. The non-finite check is agreed by every rank, and the metrics are
+the global means. The reductions are explicit all-reduces, not DDP, which
+would trip over the parameters the loss does not reach and the
+grad_accum loop.
 """
 from __future__ import annotations
 
@@ -21,6 +37,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from kpdiff_tpu_torch.models.complex import PaddedComplex
 from kpdiff_tpu_torch.models.diffusion import KeypointDiffusion
@@ -75,15 +92,71 @@ def _micro(x, accum: int, i: int):
     return x[i * m:(i + 1) * m]
 
 
-def make_train_step(cfg: TrainConfig, iters_per_epoch: int) -> Callable[..., Dict[str, float]]:
+def _all_reduce_flat(tensors, group, scale: float = 1.0):
+    """All-reduce (sum) a list of tensors as one flat buffer, in place, times `scale`."""
+    if not tensors:
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    if scale != 1.0:
+        flat.mul_(scale)
+    i = 0
+    for t in tensors:
+        t.copy_(flat[i:i + t.numel()].view_as(t))
+        i += t.numel()
+
+
+def loss_and_grads(model: KeypointDiffusion, cfg: TrainConfig, batch: PaddedComplex, w_rec: float,
+                   params, generator: Optional[torch.Generator] = None,
+                   t_eps: Optional[Tuple[Any, Any, Any]] = None, mesh=None, kp_axis: Optional[str] = None):
+    """The step's forward and backward: (total, {loss: value}) as tensors and
+    every parameter's .grad set (zero where the loss does not reach), each
+    reduced over the mesh as the module docstring says."""
+    from kpdiff_tpu_torch.parallel.kp_shard import kp_constraint
+
+    accum = max(int(cfg.grad_accum or 1), 1)
+    total_sum, loss_sums = 0.0, {}
+    for i in range(accum):
+        mb = batch if accum == 1 else _micro(batch, accum, i)
+        te = t_eps if accum == 1 or t_eps is None else tuple(_micro(a, accum, i) for a in t_eps)
+        shard = None if mesh is None else kp_constraint(mesh, mb.batch_size, axis=kp_axis or "model")
+        losses = model.loss(mb, t_eps_override=te, generator=generator, kp_shard=shard)
+        total = losses["l2"] + w_rec * losses["rec_encoder"]
+        if "rl_hinge" in losses:
+            total = total + cfg.rl_hinge_loss_weight * losses["rl_hinge"]
+        total.backward()
+        total_sum = total_sum + total.detach()
+        for k, v in losses.items():
+            loss_sums[k] = loss_sums.get(k, 0.0) + v.detach()
+    for p in params:
+        if p.grad is None:  # a parameter the loss does not reach: Adam still decays it, as optax does
+            p.grad = torch.zeros_like(p)
+    if mesh is not None:
+        if kp_axis is not None and mesh.group(kp_axis) is not None:
+            partial = {id(p) for p in model.kp_row_parameters()}
+            _all_reduce_flat([p.grad for p in params if id(p) in partial], mesh.group(kp_axis))
+        if mesh.group("data") is not None:
+            _all_reduce_flat([p.grad for p in params], mesh.group("data"), 1.0 / mesh.size("data"))
+    if accum > 1:
+        for p in params:
+            p.grad.mul_(1.0 / accum)
+        total_sum = total_sum * (1.0 / accum)
+        loss_sums = {k: v * (1.0 / accum) for k, v in loss_sums.items()}
+    return total_sum, loss_sums
+
+
+def make_train_step(cfg: TrainConfig, iters_per_epoch: int, mesh=None,
+                    kp_axis: Optional[str] = None) -> Callable[..., Dict[str, float]]:
     """Returns step(state, batch, generator=None, t_eps=None) -> metrics.
 
     The step updates `state` in place. `t_eps` = (t_int, eps_x, eps_h)
     replaces the loss's draws (the tests' seam); otherwise they come from
     `generator`. Metrics: the losses, total, lr, rec_enc_weight and
-    skipped_nonfinite, as floats."""
+    skipped_nonfinite, as floats. With a `mesh` every rank passes its rows
+    of the batch and of t_eps (`shard_batch(..., micro_batches=
+    cfg.grad_accum)`) and a generator in the same state, and
+    `kp_axis` names the axis that splits the keypoints."""
     sched = cfg.scheduler
-    accum = max(int(cfg.grad_accum or 1), 1)
 
     def step_fn(state: TrainState, batch: PaddedComplex, generator: Optional[torch.Generator] = None,
                 t_eps: Optional[Tuple[Any, Any, Any]] = None) -> Dict[str, float]:
@@ -94,31 +167,18 @@ def make_train_step(cfg: TrainConfig, iters_per_epoch: int) -> Callable[..., Dic
         params = [p for g in opt.param_groups for p in g["params"]]
 
         opt.zero_grad(set_to_none=True)
-        total_sum, loss_sums = 0.0, {}
-        for i in range(accum):
-            mb = batch if accum == 1 else _micro(batch, accum, i)
-            te = t_eps if accum == 1 or t_eps is None else tuple(_micro(a, accum, i) for a in t_eps)
-            losses = model.loss(mb, t_eps_override=te, generator=generator)
-            total = losses["l2"] + w_rec * losses["rec_encoder"]
-            if "rl_hinge" in losses:
-                total = total + cfg.rl_hinge_loss_weight * losses["rl_hinge"]
-            total.backward()
-            total_sum = total_sum + total.detach()
-            for k, v in losses.items():
-                loss_sums[k] = loss_sums.get(k, 0.0) + v.detach()
-        for p in params:
-            if p.grad is None:  # a parameter the loss does not reach: Adam still decays it, as optax does
-                p.grad = torch.zeros_like(p)
+        total_sum, loss_sums = loss_and_grads(model, cfg, batch, w_rec, params, generator, t_eps, mesh, kp_axis)
         grads = [p.grad for p in params]
-        if accum > 1:
-            for g in grads:
-                g.mul_(1.0 / accum)
-            total_sum = total_sum * (1.0 / accum)
-            loss_sums = {k: v * (1.0 / accum) for k, v in loss_sums.items()}
 
         keys = sorted(loss_sums)
         finite = torch.stack([torch.isfinite(total_sum)] + [torch.isfinite(g).all() for g in grads]).all()
-        host = torch.stack([finite.float(), total_sum] + [loss_sums[k] for k in keys]).tolist()
+        vec = torch.stack([finite.float(), total_sum] + [loss_sums[k] for k in keys])
+        n = 1
+        if mesh is not None and mesh.world is not None:
+            # an agreed skip and the global means: sums over every rank, divided by the rank count
+            dist.all_reduce(vec, group=mesh.world)
+            n = mesh.n_devices
+        host = [v / n for v in vec.tolist()]
         ok = host[0] == 1.0
         if ok:
             for group in opt.param_groups:

@@ -107,7 +107,10 @@ def _spy_runs(sampler, monkeypatch):
     return runs
 
 
-def test_run_dir_sampler_loads_the_checkpoint(port_run):
+def test_run_dir_sampler_loads_the_checkpoint(port_run, monkeypatch):
+    """Both checkpoint selections load the seeded weights; with
+    kp_shard_devices=2 the sampler starts its worker rank (gloo) and a
+    request's samples equal the one-rank sampler's on the same seed."""
     cfg, run, _, _ = port_run
     want = export_flat(tmodel(cfg, device="cpu", seed=5))
     for step in (None, 0):
@@ -115,8 +118,21 @@ def test_run_dir_sampler_loads_the_checkpoint(port_run):
         got = export_flat(sampler.model)
         assert got.keys() == want.keys() and all(np.array_equal(got[k], want[k]) for k in want)
         assert sampler.lig_buckets == [8, 16] and not sampler.model.training and sampler.model_dir == run
-    with pytest.raises(NotImplementedError):
-        KeypointSampler(run, device="cpu", kp_shard_devices=2)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    rec_pos, rec_feat, res, ips = _pocket(2)
+    outs = []
+    for n in (0, 2):
+        sampler = KeypointSampler(run, batch_size=4, device="cpu", seed=3, sample_steps=2, kp_shard_devices=n)
+        try:
+            assert sampler.rank == 0 and export_flat(sampler.model).keys() == want.keys()
+            runs = _spy_runs(sampler, monkeypatch)
+            sampler.sample_for_arrays(rec_pos, rec_feat, res, ips, n_mols=3, ligand_size=7)
+            outs.append(runs[0][2])
+        finally:
+            sampler.close()
+    assert not torch.distributed.is_initialized()  # the sampler released the group it made
+    scale = float(outs[0]["lig_x"].abs().max())
+    assert float((outs[1]["lig_x"] - outs[0]["lig_x"]).abs().max()) <= 2e-4 * scale + 1e-3
 
 
 def test_positional_jax_style_call(port_run, monkeypatch):
@@ -288,17 +304,46 @@ def test_sample_cli_layout_and_offline_metrics(port_run, tmp_path):
         assert (out / "pocket_0" / "minimized.sdf").read_bytes() == t_min
 
 
-def test_clis_refuse_what_is_not_ported(port_run, tmp_path):
-    """Multi-device sampling (data parallel, keypoint sharding) raises."""
+def test_clis_refuse_what_is_not_ported(port_run, tmp_path, monkeypatch):
+    """The CLIs' multi-device flags on 2 gloo ranks: the sample CLI split over
+    the keypoints (its molecules equal the one-rank run's), byop and serve_http
+    with --kp_shard_devices 2 (the sampler's worker rank samples in lockstep)."""
     _, run, _, _ = port_run
-    for extra in (["--n_devices", "2"], ["--shard_mode", "kp"]):
-        with pytest.raises(NotImplementedError):
-            _sample_cli(run, tmp_path / "x", *extra)
-    with pytest.raises(NotImplementedError):
-        tbyop.main(["--model_dir", str(run), "--receptor_file", "r.pdb", "--ligand_file", "l.sdf",
-                    "--kp_shard_devices", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError):
-        serve_http.main(["--model_dir", str(run), "--kp_shard_devices", "4", "--device", "cpu"])
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    for out, extra in (("one", []), ("two", ["--n_devices", "2", "--shard_mode", "kp"])):
+        _sample_cli(run, tmp_path / out, "--max_tries", "1", *extra)
+    for i in (0, 1):
+        a, b = (parse_sdf(tmp_path / d / f"pocket_{i}" / "raw_ligands.sdf") for d in ("one", "two"))
+        assert [m.elements for m in a] == [m.elements for m in b]
+        for ma, mb in zip(a, b):
+            assert np.abs(ma.coords - mb.coords).max() <= 2e-4 * np.abs(ma.coords).max() + 1e-3
+    pdb, sdf = _write_synthetic_complex_pdb_sdf(tmp_path)
+    mols = tbyop.main(["--model_dir", str(run), "--receptor_file", str(pdb), "--ligand_file", str(sdf),
+                       "--out", str(tmp_path / "byop"), "--n_mols", "3", "--ligand_size", "ref", "--sample_steps",
+                       "2", "--kp_shard_devices", "2", "--device", "cpu"])
+    assert [m.elements for m in parse_sdf(tmp_path / "byop" / "raw_ligands.sdf")] == [m.elements for m in mols]
+
+    servers, make = [], serve_http.make_server
+    monkeypatch.setattr(serve_http, "make_server", lambda *a, **kw: servers.append(make(*a, **kw)) or servers[-1])
+    thread = threading.Thread(target=serve_http.main, daemon=True, args=(
+        ["--model_dir", str(run), "--port", "0", "--batch_size", "4", "--sample_steps", "2",
+         "--kp_shard_devices", "2", "--device", "cpu"],))
+    thread.start()
+    for _ in range(600):
+        if servers or not thread.is_alive():
+            break
+        thread.join(0.2)
+    assert servers, "serve_http did not start"
+    try:
+        rec_pos, rec_feat, _, _ = _pocket(4, n_rec=30)
+        status, out = _post(f"http://127.0.0.1:{servers[0].server_address[1]}", "/sample",
+                            {"rec_pos": rec_pos.tolist(), "rec_feat": rec_feat.tolist(), "n_mols": 3,
+                             "ligand_size": 6})
+        assert status == 200 and out["n"] == len(out["molecules"]) <= 3
+    finally:
+        servers[0].shutdown()
+        thread.join(120)
+    assert not thread.is_alive() and not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("fmt", ["pdb", "mmcif"])

@@ -313,15 +313,33 @@ def test_exported_params_load_in_jax_and_the_sampler(cli_run, tmp_path):
     assert len(mols) <= 3 and all(np.isfinite(m.coords).all() and 1 <= m.n_atoms <= 9 for m in mols)
 
 
-@pytest.mark.parametrize("argv,training", [(["--n_devices", "2"], {}), (["--mp_devices", "2"], {}),
-                                           (["--n_devices", "0"], {"sample_interval": 30})])
-def test_train_cli_refuses_what_is_not_ported(tmp_path, argv, training):
-    """Multi-device training raises before a run dir is made (the analyzer,
-    sample_interval > 0, is ported: test_torch_port_serve.py)."""
-    cfg_path = _cli_config(tmp_path, **training)
-    with pytest.raises(NotImplementedError):
-        tcli.main(["--config", str(cfg_path), "--synthetic_mol", "8", "--device", "cpu"] + argv)
-    assert not (tmp_path / "runs").exists()
+@pytest.mark.parametrize("argv,refusal", [
+    (["--n_devices", "2", "--epochs", "1"], None),
+    (["--n_devices", "2", "--mp_devices", "3"], (SystemExit, "must divide the device count 2")),
+    (["--n_devices", "2", "--mp_devices", "2", "--set", "graph.n_keypoints=5"],
+     (ValueError, "n_keypoints 5 must be divisible")),
+    (["--n_devices", "100000"], (ValueError, "visible")),
+], ids=["two_ranks", "mp_not_dividing", "k_not_dividing", "too_many_devices"])
+def test_train_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, argv, refusal):
+    """--n_devices 2 trains on 2 gloo ranks and writes one run dir (rank 0's
+    checkpoints and logs); what the JAX CLI refuses is refused before a run
+    dir is made: --mp_devices not dividing --n_devices
+    (kpdiff_tpu/cli/train.py:207-209), a keypoint count the model axis does
+    not divide, more devices than are visible."""
+    cfg_path = _cli_config(tmp_path)
+    argv = ["--config", str(cfg_path), "--synthetic_mol", "8", "--device", "cpu"] + argv
+    if refusal is not None:
+        with pytest.raises(refusal[0], match=refusal[1]):
+            tcli.main(argv)
+        assert not (tmp_path / "runs").exists()
+        return
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    run_dir, state = tcli.main(argv)
+    assert state is None and [p.name for p in (tmp_path / "runs").iterdir()] == [run_dir.name]
+    assert ttrainer.checkpoint_steps(run_dir / "checkpoints")
+    rows = ttrainer.MetricsLog(run_dir / "train_metrics.pkl").rows
+    assert rows and all(np.isfinite(r["l2"]) and r["skipped_nonfinite"] == 0.0 for r in rows)
+    assert np.isfinite(ttrainer.MetricsLog(run_dir / "test_metrics.pkl").rows[-1]["test_l2"])
 
 
 def test_sampling_takes_the_kernel_entry_with_a_differentiable_encoder(tmp_path, monkeypatch):
