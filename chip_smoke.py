@@ -6,12 +6,17 @@ Phases, each timed on its own line; any failure raises (non-zero exit):
   1. device: CUDA must be present; prints the card's name and power limit;
   2. build: nvcc compiles kpdiff_tpu_torch/csrc/egnn_edge.cu into
      kpdiff_tpu_torch/_build/ (loaded with ctypes);
-  3. kernel: the dense EGNN edge kernel against its plain PyTorch version
-     on seeded random inputs at the flagship shapes (B=128, H=257, Ns=Nd in
-     16/32/48 for ll and 40 for kk), with many sources (B=16, Nd=48, Ns=192
-     and 384), and at the other families' shapes (width 256 at kk40 and
-     ll32, K=20, kk 128 x 128 at B=32, block windows of 192 sources to 64
-     destinations over B*6 rows), bf16 and f32, with times;
+  3. kernel: first the kernel's tensor-core product alone (one 64-row tile
+     of wgmma m64n256k16 through the packed W2, egnn_edge.wgmma_probe)
+     against torch.matmul of the same bf16 operands; then the dense EGNN
+     edge kernel (v5) against its plain PyTorch version on seeded random
+     inputs at the flagship shapes (B=128, H=257, Ns=Nd in 16/32/48 for ll
+     and 40 for kk), with many sources (B=16, Nd=48, Ns=192 and 384), at
+     the other families' shapes (width 256 at kk40 and ll32, K=20, kk
+     128 x 128 at B=32, block windows of 192 sources to 64 destinations over
+     B*6 rows) and at a data-parallel rank's ll32 (B=8), bf16 and f32, with
+     times. Every measured row is launched twice on the same inputs and the
+     two outputs must be bitwise equal;
   4. slice: configs/egnn_40kp.yml at full width and depth, batch 128, ligand
      buckets 16/32/48: encode -> compact_kk -> 250-step strided sampling
      through the kernel, launch counts checked; then the kernel held against
@@ -170,6 +175,9 @@ H100_BYTES = 3.35e12      # HBM3 bandwidth
 ELEMENTWISE_OPS = 16  # CUDA-core f32 ops per element, pair and chain: first-layer sum and
 #                      silu, lin2 bias and silu, the row product with attw or wout
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # relative max-abs error vs the plain version
+# the product alone: both sides sum exact bf16 products in f32, in other orders (about 1e-6); a wrong
+# descriptor, swizzle or fragment layout gives errors of order 1
+PRODUCT_TOL = 1e-4
 SPIN_CYCLES = 20_000_000  # about 10 ms of SM clocks: longer than the host takes to queue a measurement's launches
 PROFILE_LATER = []  # (kernel row, its inputs, keywords, launches) of the grids at B <= 32, read by the profiler last
 TRAIN_COMPLEXES = 256  # molgen training split: auto buckets [24, 32, 48], 3 full batches of 64 per epoch
@@ -243,7 +251,8 @@ def bound(args, cd):
     pairs = int(adj.sum())
     matmul = pairs * 2 * 2 * h * h
     elementwise = pairs * 2 * h * ELEMENTWISE_OPS
-    n_bytes = sum(t.numel() * t.element_size() for t in args if torch.is_tensor(t))
+    n_bytes = sum(t.numel() * t.element_size() for a in args
+                  for t in (a if isinstance(a, egnn_edge.PackedW2) else (a,)) if torch.is_tensor(t))
     n_bytes += b * nd * (h + 3) * 4
     if cd == torch.bfloat16:
         t_ops = max(matmul / H100_BF16_FLOPS, elementwise / H100_F32_FLOPS)
@@ -274,11 +283,14 @@ def library_ms(args, cd, iters=20):
 def measure(args, cd, label, iters=20):
     kw = dict(use_tanh=True, coords_range=10.0, compute_dtype=cd)
     got = egnn_edge.egnn_edge_dense(*args, **kw)
+    again = egnn_edge.egnn_edge_dense(*args, **kw)
     ref = egnn_edge.egnn_edge_dense_plain(*args, **kw)
     torch.cuda.synchronize()
     for t in got:
         if not torch.isfinite(t).all():
             raise RuntimeError(f"{label}: kernel output not finite")
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        raise RuntimeError(f"{label} {cd}: two launches on the same inputs differ (the sums are deterministic)")
     rel, ab = rel_err(got, ref), abs_err(got, ref)
     if rel > TOL[cd]:
         raise RuntimeError(f"{label} {cd}: kernel vs plain relative error {rel:.3e} > {TOL[cd]:.0e}")
@@ -288,7 +300,7 @@ def measure(args, cd, label, iters=20):
     b_ms, b_by, pairs = bound(args, cd)
     lib, lib_d = library_ms(args, cd, iters) if cd == torch.bfloat16 else (None, None)
     row = dict(shape=label, dtype=str(cd).replace("torch.", ""), pairs=pairs, max_rel_err=rel,
-               max_abs_err=ab, ms=k_ms, device_ms=d_ms, profiler_ms=None, plain_ms=p_ms, bound_ms=b_ms,
+               max_abs_err=ab, bitwise_repeat=True, ms=k_ms, device_ms=d_ms, profiler_ms=None, plain_ms=p_ms, bound_ms=b_ms,
                bound_by=b_by, library_ms=lib, library_device_ms=lib_d)
     if args[0].shape[0] <= FAMILY_BATCH:  # small grids: torch.profiler's reading too, after every timed phase
         PROFILE_LATER.append((row, args, kw, iters))
@@ -297,6 +309,25 @@ def measure(args, cd, label, iters=20):
           f"library_device_ms={lib_d if lib_d is None else round(lib_d, 4)} bound_ms={b_ms:.4f} ({b_by}) "
           f"pairs={pairs} max_rel_err={rel:.3e} max_abs_err={ab:.3e}", flush=True)
     return row
+
+
+def product_check(seed):
+    """The kernel's tensor-core product alone (egnn_edge.wgmma_probe: one 64-row tile, the kernel's
+    descriptors, fragments and channel order) against the same bf16 operands multiplied in f32 by
+    torch.matmul (an oracle here, never on the path). Returns the max abs error over the max abs value."""
+    rng = np.random.default_rng(seed + 11)
+    w = torch.tensor(rng.normal(size=(257, 257)).astype(np.float32) / 16, device="cuda")
+    packed = egnn_edge.pack_w2(w, torch.bfloat16)
+    a = torch.tensor(rng.normal(size=(64, 256)).astype(np.float32), device="cuda").to(torch.bfloat16)
+    got = egnn_edge.wgmma_probe(a, packed.main)
+    ref = a.float() @ egnn_edge.unpack_w2(packed)[:256, :256]
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max() / ref.abs().max())
+    print(f"product alone (wgmma m64n256k16 x 16 k-steps, one tile): max_rel_err={err:.3e} "
+          f"(tolerance {PRODUCT_TOL:.0e})", flush=True)
+    if not err <= PRODUCT_TOL:
+        raise RuntimeError(f"the kernel's product alone differs from torch.matmul: {err:.3e}")
+    return err
 
 
 def _device_us(evt) -> float:
@@ -357,10 +388,10 @@ def random_args(rng, b, ns, nd, h, dev):
 
 
 def with_dtype(args, cd):
-    """The module passes W2 in the compute dtype; everything else stays f32."""
-    out = list(args)
-    out[6] = egnn_edge.pad_weight(args[6], cd)
-    out[10] = egnn_edge.pad_weight(args[10], cd)
+    """The module passes a_* rows and W2 (packed by pack_w2) in the compute dtype; everything else stays f32."""
+    out = [egnn_edge.aligned_rows(a, cd) if i < 4 else a for i, a in enumerate(args)]
+    out[6] = egnn_edge.pack_w2(args[6], cd)
+    out[10] = egnn_edge.pack_w2(args[10], cd)
     return tuple(out)
 
 
@@ -897,7 +928,7 @@ def family_phase(name, seed, dev, data_cache, kernel_rows):
     def recording(*a, **kw):  # the first launch at each (Ns, Nd, H) of this family's paths
         key = (int(a[0].shape[0]), int(a[0].shape[1]), int(a[1].shape[1]), int(a[0].shape[2]))
         if key not in seen:
-            seen[key] = (tuple(x.clone() if torch.is_tensor(x) else x for x in a), kw["compute_dtype"])
+            seen[key] = (egnn_edge.snapshot_args(a), kw["compute_dtype"])
         return real_wrapper(*a, **kw)
 
     # ---- sampling: encode -> compact_kk -> K steps
@@ -1377,7 +1408,7 @@ def graph_option_phase(cfg, flat, seed, dev, label, overrides, check_steps, kern
     def recording(*a, **kw):
         key = (int(a[0].shape[0]), int(a[0].shape[1]), int(a[1].shape[1]), int(a[0].shape[2]))
         if key not in seen:
-            seen[key] = (tuple(x.clone() if torch.is_tensor(x) else x for x in a), kw["compute_dtype"])
+            seen[key] = (egnn_edge.snapshot_args(a), kw["compute_dtype"])
         return real_wrapper(*a, **kw)
 
     def checking(*a, **kw):
@@ -1727,14 +1758,17 @@ def main():
 
     # ---- 3. kernel against its plain version at the flagship shapes
     t0 = time.perf_counter()
+    product_err = product_check(args.seed)
     rng = np.random.default_rng(args.seed)
     shape_rows = []
     # the flagship's shapes, many sources, and the other families' (width 256 of egnn_40kp_fast, K=20 of
-    # egnn_20kp, egnn_ca's 128 x 128 kk, egnn_all_atom's block windows: 3 x 64 sources to 64 per tile, B * 6 rows)
+    # egnn_20kp, egnn_ca's 128 x 128 kk, egnn_all_atom's block windows: 3 x 64 sources to 64 per tile, B * 6 rows),
+    # and ll32 at B=8, a data-parallel rank's share of phase 11's batch
     for label, b, ns, nd, h in (("ll16", BATCH, 16, 16, 257), ("ll32", BATCH, 32, 32, 257),
                                 ("ll48", BATCH, 48, 48, 257), ("kk40", BATCH, 40, 40, 257),
                                 ("ns192_nd48", 16, 192, 48, 257), ("ns384_nd48", 16, 384, 48, 257),
                                 ("kk40_h256", BATCH, 40, 40, 256), ("ll32_h256", BATCH, 32, 32, 256),
+                                ("ll32_b8", 8, 32, 32, 257),
                                 ("kk20", BATCH, 20, 20, 257), ("kk128", FAMILY_BATCH, 128, 128, 257),
                                 ("block192x64", FAMILY_BATCH * 6, 192, 64, 257)):
         base = random_args(rng, b, ns, nd, h, dev)
@@ -1762,7 +1796,7 @@ def main():
     def recording_wrapper(*a, **kw):
         key = ("kk" if a[0].shape[1] == pad.n_kp else "ll") + str(a[0].shape[1])
         if key not in captured:
-            captured[key] = (tuple(t.clone() if torch.is_tensor(t) else t for t in a), kw["compute_dtype"])
+            captured[key] = (egnn_edge.snapshot_args(a), kw["compute_dtype"])
         return real_wrapper(*a, **kw)
 
     per_bucket, slice_rows, encoded = {}, {}, {}
@@ -1962,7 +1996,8 @@ def main():
     head = main_rows.get("ll48") or next(iter(main_rows.values()))
     kernels = {"kernels": [{
         "name": "egnn_edge_dense", "route": "cuda", "source": "kpdiff_tpu_torch/csrc/egnn_edge.cu",
-        "replaces": "kpdiff_tpu/ops/pallas/egnn_edge.py:174", "launches": main_launches,
+        "replaces": "kpdiff_tpu/ops/pallas/egnn_edge.py:174", "launches": main_launches, "kernel": "v5",
+        "product_alone_max_rel_err": product_err,
         "shape": head["shape"], "max_abs_err": head["max_abs_err"], "max_rel_err_bf16": head["max_rel_err"],
         "ms": head["ms"], "kernel_ms": head["ms"], "device_ms": head["device_ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"], "library_ms": head["library_ms"],

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from kpdiff_tpu_torch.models.nn import MLP, LayerNorm, compute_dtype, uniform_, xavier_uniform_scaled
-from kpdiff_tpu_torch.ops.cuda.egnn_edge import egnn_edge_dense, egnn_edge_dense_plain, pad_weight
+from kpdiff_tpu_torch.ops.cuda.egnn_edge import egnn_edge_dense, egnn_edge_dense_plain, pack_w2, row_stride
 from kpdiff_tpu_torch.ops.neighbors import gather_rows
 
 
@@ -107,8 +107,11 @@ class EGNNEdgeDense(_EdgeParams):
 
     def _kernel_weights(self):
         """The kernel's weight operands, converted once and cached until a
-        parameter changes: f32 first-layer matrices and vectors, second-layer
-        weights zero-padded in the compute dtype."""
+        parameter changes: the first layers' source and destination matrices
+        (and destination biases) of both chains side by side, f32, each
+        zero padded to `row_stride` columns (one product per side writes the
+        kernel's a_* rows of both chains), f32 vectors, and the second
+        layers packed in the compute dtype (`pack_w2`)."""
         params = tuple(self.parameters())
         key = (self.cd, tuple((p.data_ptr(), p._version, p.dtype) for p in params))
         if self._pack is None or self._pack[0] != key:
@@ -117,13 +120,17 @@ class EGNNEdgeDense(_EdgeParams):
             def vec(p):
                 return p.detach().reshape(-1).to(f32).contiguous()
 
-            pack = {name: getattr(self, name).detach().to(f32)
-                    for name in ("edge_w_src", "edge_w_dst", "edge_b", "coord_w_src", "coord_w_dst", "coord_b")}
+            def cols(*ps):
+                return torch.cat([F.pad(p.detach().to(f32), (0, row_stride(p.shape[-1]) - p.shape[-1]))
+                                  for p in ps], dim=-1).contiguous()
+
+            pack = dict(w_src=cols(self.edge_w_src, self.coord_w_src), w_dst=cols(self.edge_w_dst, self.coord_w_dst),
+                        b_dst=cols(self.edge_b, self.coord_b))
             pack.update(
                 w_edij=vec(self.edge_w_dij[0]), w_cdij=vec(self.coord_w_dij[0]),
-                w2e=pad_weight(self.edge_lin2_w.detach(), self.cd), b2e=vec(self.edge_lin2_b),
+                w2e=pack_w2(self.edge_lin2_w, self.cd), b2e=vec(self.edge_lin2_b),
                 attw=vec(self.attn_w), atb=vec(self.attn_b),
-                w2c=pad_weight(self.coord_lin2_w.detach(), self.cd), b2c=vec(self.coord_lin2_b),
+                w2c=pack_w2(self.coord_lin2_w, self.cd), b2c=vec(self.coord_lin2_b),
                 wout=vec(self.coord_out_w))
             self._pack = (key, pack)
         return self._pack[1]
@@ -146,9 +153,12 @@ class EGNNEdgeDense(_EdgeParams):
                 self.attn_w[:, 0], self.attn_b, self.coord_lin2_w, self.coord_lin2_b, self.coord_out_w[:, 0],
                 xs, xd, adj, **kw)
         w = self._kernel_weights()
+        h = self.edge_b.shape[0]
+        lda = row_stride(h)
+        # both chains' per-node projections in one f32 product per side, rounded to the compute dtype
+        a_src, a_dst = (hs @ w["w_src"]).to(self.cd), (hd @ w["w_dst"] + w["b_dst"]).to(self.cd)
         return egnn_edge_dense(
-            hs @ w["edge_w_src"], hd @ w["edge_w_dst"] + w["edge_b"],
-            hs @ w["coord_w_src"], hd @ w["coord_w_dst"] + w["coord_b"],
+            a_src[..., :h], a_dst[..., :h], a_src[..., lda:lda + h], a_dst[..., lda:lda + h],
             w["w_edij"], w["w_cdij"], w["w2e"], w["b2e"], w["attw"], w["atb"],
             w["w2c"], w["b2c"], w["wout"], xs, xd, adj, **kw)
 

@@ -14,7 +14,8 @@ over kernels, their ratio (the device's busy share) and the kernels that
 take the most device time. For an EGNN config, then, for each shape of the
 edge kernel on that bucket's path, one launch of the kernel's profiling
 build (-DEGNN_EDGE_PHASE_CLOCKS) on the inputs the path gave it: the share
-of the warps' SM clocks spent in each in-kernel phase. Then one step's
+of the warps' SM clocks spent in each in-kernel phase, for each chain's
+consumer and helper warps. Then one step's
 calls of the edge modules (EGNN: the dense edges, the kNN pairs, the kk
 neighbor list; GVP: the edge messages by layout) replayed on their own
 inputs under torch.profiler, each module's device time beside the step's:
@@ -256,7 +257,7 @@ def main():
         captured = {}  # the edge kernel's inputs, first launch at each shape
 
         def recording(*a, **kw):
-            captured.setdefault(_edge_key(role, a), ([x.clone() if torch.is_tensor(x) else x for x in a], kw))
+            captured.setdefault(_edge_key(role, a), (egnn_edge.snapshot_args(a), kw))
             return real(*a, **kw)
 
         real = egnn_mod.egnn_edge_dense
@@ -307,10 +308,11 @@ def main():
                                  for label, (n, ms) in by_module.items())
                      + f"; these modules {total / step_ms * 100:.1f}% of the step")
         for key, (a, kw) in sorted(captured.items()):
-            clocks = egnn_edge.phase_clocks(*a, **kw)
-            total = sum(clocks.values())
-            lines.append(f"  edge kernel phase clocks {key} ({int(a[15].sum())} active pairs): " + ", ".join(
-                f"{name} {v / total * 100:.1f}%" for name, v in clocks.items()) + f"; total {total} warp-clocks")
+            for warps, clocks in egnn_edge.phase_clocks(*a, **kw).items():
+                total = sum(clocks.values())
+                lines.append(f"  edge kernel phase clocks {key}, {warps} warps ({int(a[15].sum())} active pairs): "
+                             + ", ".join(f"{name} {v / max(total, 1) * 100:.1f}%" for name, v in clocks.items())
+                             + f"; total {total} warp-clocks")
         print("\n".join(lines), flush=True)
         report.extend(lines)
     if args.out:

@@ -68,9 +68,9 @@ def test_kernel_wrapper_rejects_unsupported_dtype():
 
 
 def test_kernel_wrapper_takes_only_padded_weights():
-    """W2 comes zero-padded to a multiple of 16 in the compute dtype
-    (`pad_weight`, as the module hands it over); an unpadded (H, H) W2 or
-    one in another dtype is refused."""
+    """W2 comes packed by `pack_w2` in the compute dtype (its main block
+    zero padded to the kernel's tile, as the module hands it over); a raw
+    (H, H) W2 or one packed in another dtype is refused."""
     rng = np.random.default_rng(3)
     b, n, h = 2, 5, 20
     a = [t(rng.normal(size=(b, n, h)).astype(np.float32)) for _ in range(4)]
@@ -84,12 +84,12 @@ def test_kernel_wrapper_takes_only_padded_weights():
     def call(we, wc):
         return egnn_edge.egnn_edge_dense(*a, v[0], v[1], we, v[2], v[3], atb, wc, v[4], v[5], x, x, adj, **kw)
 
-    agg_h, agg_x = call(egnn_edge.pad_weight(w2e, torch.float32), egnn_edge.pad_weight(w2c, torch.float32))
+    agg_h, agg_x = call(egnn_edge.pack_w2(w2e, torch.float32), egnn_edge.pack_w2(w2c, torch.float32))
     assert agg_h.shape == (b, n, h) and agg_x.shape == (b, n, 3)
     with pytest.raises(ValueError):
-        call(w2e, egnn_edge.pad_weight(w2c, torch.float32))
+        call(w2e, egnn_edge.pack_w2(w2c, torch.float32))
     with pytest.raises(TypeError):
-        call(egnn_edge.pad_weight(w2e, torch.bfloat16), egnn_edge.pad_weight(w2c, torch.float32))
+        call(egnn_edge.pack_w2(w2e, torch.bfloat16), egnn_edge.pack_w2(w2c, torch.float32))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
