@@ -19,9 +19,11 @@ Phases, each timed on its own line; any failure raises (non-zero exit):
      two outputs must be bitwise equal;
   4. slice: configs/egnn_40kp.yml at full width and depth, batch 128, ligand
      buckets 16/32/48: encode -> compact_kk -> 250-step strided sampling
-     through the kernel, launch counts checked; then the kernel held against
-     its plain version on the inputs the main path gave it, and on every
-     launch of a 10-step chain with injected noise; the chain's free-running
+     through the kernel, replayed from the reverse step's captured CUDA
+     graph (the samplers' default on CUDA), launch counts checked; then the
+     kernel held against its plain version on the inputs the main path gave
+     it, and on every launch of a 10-step eager chain (cuda_graph=False)
+     with injected noise; the chain's free-running
      distance to the plain chain is reported beside that of two plain chains
      whose initial noise differs by one ulp;
   5. serving: a port run directory made from the trained weights
@@ -31,7 +33,9 @@ Phases, each timed on its own line; any failure raises (non-zero exit):
      sample_for_arrays with an int size, with 'ref' and with 'random' (two
      chunks, two buckets), and sample_for_pocket on a synthetic receptor
      PDB and reference SDF written here (pocket of 260-384 atoms, ligand of
-     24); batch 64, K=250; each request's latency split by part;
+     24); batch 64, K=250, every chunk repeat-padded to 64 rows (checked
+     row by row); each request's latency split by part; then the 'ref'
+     request with eager steps and again through its cached graph;
   6. train: flagship training from the trained weights on molgen data (256
      complexes, full padding): one batch of 4 through loss and backward on
      the card and on the CPU, f32 (gated) and bf16 (loss gated, gradients
@@ -93,6 +97,20 @@ Phases, each timed on its own line; any failure raises (non-zero exit):
      40/n -> 32 and lk 32 -> 40/n with kl_k 0, kk 20 -> 20/n, kk 24 -> 3 of
      K=20 padded for 8, ll32 and kk40 at B/n), bf16 and f32, against the
      plain version; and kpdiff_tpu_torch.dryrun.dryrun_multichip(1).
+ 12. graphs: the reverse chain as a captured CUDA graph of one step against
+     eager steps, on the trained flagship at batch 128, buckets 16/32/48,
+     K=250: seconds per ligand of each path, the capture's seconds and graph
+     pool bytes, each graph step against the eager step on the same state
+     and generator state at steps 0, 1, 125 and 249 (bitwise expected; gated
+     at 2e-2 of the state's scale in bf16, 1e-5 in f32), a captured graph's
+     draws against eager draws (bitwise), two successive requests (they
+     differ; neither output aliases the graph's buffers), then under
+     torch.profiler 10 steps of each path (wall and device ms a step, busy
+     share) with the edge kernel's rows counted (12 a step, equal to the
+     launches captured times the replays); the trained gvp_40kp at bucket
+     48 the same way (K=50); and the profiled launches of graph chains on
+     the other layouts (egnn_ca on compact_kk's list, 6 a step; the
+     flagship with kl_k 0, 24 a step).
 Every row of the kernel table carries `device_ms`, the kernel's device time
 per launch with the launches queued behind a spin kernel, beside `ms` (CUDA
 events around back-to-back calls of the Python wrapper, which the host may
@@ -105,7 +123,12 @@ Every sampling path is held to its kernel launch count (ChainLog): for EGNN,
 n_layers launches per reverse step for ll, as many again for kk while it is
 dense or in blocks, and with kl_k 0 as many again for each of kl and lk (12
 a step; 6 where compact_kk gives a neighbor list; 24 with dense kl/lk);
-none for GVP, whose messages run in plain PyTorch.
+none for GVP, whose messages run in plain PyTorch. Sampling replays a
+captured CUDA graph of the reverse step by default: the first chain of a
+shape runs its first step eagerly (its launches counted as they are made)
+and captures the step (the wrapper counts the calls it records in
+egnn_edge.captured, not in launches); every replay adds the captured count.
+Per-launch checks run on eager chains (cuda_graph=False).
 Weights: the trained flagship, artifacts/egnn_40kp_trained_params.npz
 (--params names another keystr npz archive), and the trained gvp_40kp; the
 run fails without them.
@@ -152,6 +175,7 @@ from kpdiff_tpu_torch.data.padding import pad_item, to_complex
 from kpdiff_tpu_torch.data.pdb import format_pdb_line, parse_pdb
 from kpdiff_tpu_torch.data.sdf import SdfMol, parse_sdf, write_sdf
 from kpdiff_tpu_torch.models.complex import synthetic_batch, synthetic_complex_np
+from kpdiff_tpu_torch.models.chain_graph import STATE, clone_tree, copy_tree
 from kpdiff_tpu_torch.models.diffusion import KeypointDiffusion
 from kpdiff_tpu_torch.models.size_dist import LigandSizeDistribution, save_dataset_histogram
 from kpdiff_tpu_torch.ops.cuda import egnn_edge
@@ -209,6 +233,10 @@ PAR_STEPS, PAR_BATCH, PAR_BUCKET, PAR_K = 5, 32, 32, 50
 # six times the readings of sound runs on the H100 (1.146e-4 and 1.5e-4: Adam turns the other summation order's
 # bf16 rounding into parameter differences)
 PAR_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
+# phase 12: graph against eager; a graph step against the eager step on one state, relative to the state's scale
+# (bitwise expected; the kNN pairs' scatter-adds sum in another order from run to run on the card)
+GRAPH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+GRAPH_PROFILE_STEPS, GVP_GRAPH_K = 10, 50
 RESIDUE = (("N", "N"), ("CA", "C"), ("C", "C"), ("O", "O"), ("CB", "C"), ("CG", "C"), ("CD", "C"), ("OE1", "O"))
 
 
@@ -723,19 +751,34 @@ def serve_phase(run, cfg, pdb, sdf, seed, tmp):
 
     def checked_run(cpx, init_com):  # every chunk: finite coordinates, one ligand of each drawn size
         out, layout = real_run(cpx, init_com)
-        outs.append((sorted(out["lig_mask"].sum(1).tolist()), bool(torch.isfinite(out["lig_x"]).all())))
+        outs.append((out["lig_mask"].sum(1).tolist(), bool(torch.isfinite(out["lig_x"]).all())))
         return out, layout
 
     sampler._run = checked_run
     rows, paths = {}, {}
     arrays = dict(rec_pos=data["rec_pos"], rec_feat=data["rec_feat"], rec_res_idx=data["rec_res_idx"],
                   interface_points=data["interface_points"], init_com=data["lig_pos"].mean(0), ref_n_atoms=n_ref)
+    # graphs by default (the first request of each bucket and kk cap captures one); then serve_ref again with
+    # the sampler asked for eager steps, and once more through its cached graph, for the latency of each
     requests = (("serve_int", dict(n_mols=SERVE_BATCH, ligand_size=20)),
                 ("serve_ref", dict(n_mols=SERVE_BATCH, ligand_size="ref")),
                 ("serve_random", dict(n_mols=SERVE_BATCH + SERVE_BATCH // 2, ligand_size="random")),
-                ("serve_pocket", dict(n_mols=SERVE_BATCH, ligand_size="ref")))
+                ("serve_pocket", dict(n_mols=SERVE_BATCH, ligand_size="ref")),
+                ("serve_ref_eager", dict(n_mols=SERVE_BATCH, ligand_size="ref")),
+                ("serve_ref_graph", dict(n_mols=SERVE_BATCH, ligand_size="ref")))
+    graphs = sampler.model.chain_graphs if DEVICE == "cuda" else None
+    model = sampler.model
+
+    def eager_sample(*a, **kw):  # the class's sample (ChainLog's while it logs), asked for eager steps
+        return type(model).sample(model, *a, **kw, cuda_graph=False)
+
     for label, kw in requests:
         outs.clear()
+        if label.endswith("_eager"):
+            model.sample = eager_sample
+        else:
+            model.__dict__.pop("sample", None)
+        n_captures = len(graphs.captures) if graphs is not None else 0
         with ChainLog() as log:
             t0 = time.perf_counter()
             if label == "serve_pocket":
@@ -754,21 +797,30 @@ def serve_phase(run, cfg, pdb, sdf, seed, tmp):
                 raise RuntimeError(f"{label}: sizes {sizes} in chunks {req['chunks']}: not two buckets")
         elif sizes != want:
             raise RuntimeError(f"{label}: drew sizes {sizes}, expected {want}")
-        for (got_sizes, finite), c in zip(outs, req["chunks"]):
-            if not finite or got_sizes != sorted(c["sizes"]):
+        for (got_sizes, finite), c in zip(outs, req["chunks"]):  # chunks repeat-padded to SERVE_BATCH rows
+            n = len(c["sizes"])
+            if (not finite or len(got_sizes) != SERVE_BATCH or sorted(got_sizes[:n]) != sorted(c["sizes"])
+                    or got_sizes[n:] != [c["sizes"][-1]] * (SERVE_BATCH - n)):
                 raise RuntimeError(f"{label}: chunk of sizes {c['sizes']} came out with sizes {got_sizes}, "
                                    f"finite={finite}")
         check_molecules(label, mols, max(sizes))
         paths[label] = log.check(label)
         parts = {k: req[k] for k in ("parse_pocket_s", "front_end_s", "sample_s", "copy_s", "build_s") if k in req}
+        new_captures = graphs.captures[n_captures:] if graphs is not None else []
         rows[label] = dict(latency_s=latency, write_sdf_s=write_s, n_mols=kw["n_mols"], n_built=len(mols),
                            n_bonded=sum(bool(m.bonds) for m in mols), chunks=req["chunks"], **parts,
+                           cuda_graph=not label.endswith("_eager"),
+                           captures=[dict(capture_s=c["capture_s"], pool_bytes=c["pool_bytes"]) for c in new_captures],
                            **({"pocket_atoms": req["pocket_atoms"]} if "pocket_atoms" in req else {}))
         print(f"serve {label}: {latency:.3f} s for {kw['n_mols']} molecules ("
               + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + f", write_sdf_s {write_s:.4f}); "
               f"{len(mols)} built, {rows[label]['n_bonded']} with bonds; buckets "
-              f"{[c['bucket'] for c in req['chunks']]}", flush=True)
+              f"{[c['bucket'] for c in req['chunks']]}; "
+              + ("eager steps" if label.endswith("_eager") else
+                 f"graph replays, {len(new_captures)} captures ({sum(c['capture_s'] for c in new_captures):.3f} s)"),
+              flush=True)
     sampler._run = real_run
+    model.__dict__.pop("sample", None)
     return sampler, dict(requests=rows, pocket_atoms=int(data["rec_pos"].shape[0]), ref_atoms=n_ref,
                          interface_points=int(data["interface_points"].shape[0])), paths
 
@@ -858,10 +910,12 @@ def frontends_phase(run, cfg, sampler, pdb, sdf, seed, tmp):
     real_analyze = ModelAnalyzer.sample_and_analyze
 
     def logged_analyze(self, *a, **kw):
+        n_captures = len(self.model.chain_graphs.captures)
         with ChainLog() as alog:
             t0 = time.perf_counter()
             m = real_analyze(self, *a, **kw)
             alog.seconds = time.perf_counter() - t0
+        alog.captures = self.model.chain_graphs.captures[n_captures:]  # recaptured: the weights changed
         analyzer_logs.append(alog)
         return m
 
@@ -881,10 +935,16 @@ def frontends_phase(run, cfg, sampler, pdb, sdf, seed, tmp):
     step = best_step(run_dir)
     export_params(run_dir, tmp / "best.npz", step)
     load_params(model_from_config(load_config(run_dir / "config.yml"), device="cpu"), read_keystr_npz(tmp / "best.npz"))
+    a_caps = analyzer_logs[0].captures
+    if DEVICE == "cuda" and len(a_caps) != 1:
+        raise RuntimeError(f"train CLI analyzer: {len(a_caps)} graph captures, expected 1")
     rows["train_cli"] = dict(s=dt, steps=state.step, analyzer_s=analyzer_logs[0].seconds, best_step=step,
+                             analyzer_capture_s=[c["capture_s"] for c in a_caps],
+                             analyzer_pool_bytes=[c["pool_bytes"] for c in a_caps],
                              mol_row={k: v for k, v in mol_rows[0].items() if not isinstance(v, str)})
     print(f"front end train CLI: {state.step} steps and the analyzer in {dt:.3f} s (analyzer "
-          f"{analyzer_logs[0].seconds:.3f} s, mol_connectivity {mol_rows[0]['mol_connectivity']:.4f}, "
+          f"{analyzer_logs[0].seconds:.3f} s, its graph captured in {sum(c['capture_s'] for c in a_caps):.3f} s, "
+          f"mol_connectivity {mol_rows[0]['mol_connectivity']:.4f}, "
           f"mol_validity {mol_rows[0]['mol_validity']:.4f}); export_params --best -> step {step}", flush=True)
     return rows, paths
 
@@ -966,7 +1026,7 @@ def family_phase(name, seed, dev, data_cache, kernel_rows):
         egnn_mod.egnn_edge_dense = checking
         try:
             with ChainLog() as log, torch.no_grad():
-                model.sample(enc, own_kk, sample_steps=FAMILY_OWN_KK_STEPS, generator=gen)
+                model.sample(enc, own_kk, sample_steps=FAMILY_OWN_KK_STEPS, generator=gen, cuda_graph=False)
         finally:
             egnn_mod.egnn_edge_dense = real_wrapper
         paths[f"family_{name}_own_kk"] = log.check(f"{name} own kk {kk_layout(own_kk)}")
@@ -1430,7 +1490,7 @@ def graph_option_phase(cfg, flat, seed, dev, label, overrides, check_steps, kern
         if check_steps:
             egnn_mod.egnn_edge_dense = checking
             with ChainLog() as check_log, torch.no_grad():
-                model.sample(enc, kk, sample_steps=check_steps, generator=gen)
+                model.sample(enc, kk, sample_steps=check_steps, generator=gen, cuda_graph=False)
     finally:
         egnn_mod.egnn_edge_dense = real_wrapper
     for k, shape in (("lig_x", (REF_BATCH, REF_BUCKET, 3)), ("lig_h", (REF_BATCH, REF_BUCKET, 10))):
@@ -1620,8 +1680,8 @@ def parallel_sample(params_path, seed, dev):
 
     def recording(dyn, *a, **kw):
         out = real(dyn, *a, **kw)
-        if kw.get("kp_shard") is None:
-            states.append((dyn, a, out))
+        if kw.get("kp_shard") is None:  # the step updates its state in place after the call: keep copies
+            states.append((dyn, clone_tree(a), out))
         return out
 
     runs = {}
@@ -1629,13 +1689,14 @@ def parallel_sample(params_path, seed, dev):
     try:
         for label, (e, k, sh) in (("unsharded", (enc, kk, None)), ("sharded", (enc_s, kk_s, shard))):
             gen = torch.Generator(device=dev).manual_seed(seed + 6)
-            model.sample(e, k, sample_steps=2, generator=gen, kp_shard=sh)  # warm-up
+            model.sample(e, k, sample_steps=2, generator=gen, kp_shard=sh, cuda_graph=False)  # warm-up
             states.clear()
             torch.cuda.synchronize()
             egnn_edge.launches = 0
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            out = model.sample(e, k, sample_steps=PAR_K, generator=gen.manual_seed(seed + 7), kp_shard=sh)
+            out = model.sample(e, k, sample_steps=PAR_K, generator=gen.manual_seed(seed + 7), kp_shard=sh,
+                               cuda_graph=False)
             end.record()
             torch.cuda.synchronize()
             runs[label] = dict(launches=egnn_edge.launches, ms_per_step=start.elapsed_time(end) / PAR_K, out=out,
@@ -1718,6 +1779,265 @@ def parallel_phase(params_path, seed, dev, batches, iters_per_epoch, tmp):
     paths = dict(parallel_kp_sample=sample["launches"], parallel_kp_checked=sample["checked_launches"],
                  parallel_dryrun=dry_launches)
     return record, paths, rows
+
+
+# ---- phase 12: the reverse chain as a captured CUDA graph of one step
+
+def profiled(fn):
+    """fn() under torch.profiler: (wall s, device s summed over kernel rows,
+    kernels, edge-kernel launches). Kernels replayed from a CUDA graph have
+    their rows as launched ones do."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and _device_us(e) > 0
+            and not getattr(e, "is_user_annotation", False)]
+    return (wall, sum(_device_us(e) for e in rows) * 1e-6, sum(e.count for e in rows),
+            sum(e.count for e in rows if "egnn_edge" in e.key))
+
+
+def timed_chain(fn):
+    """Host seconds of fn() to its last kernel, and the CUDA events' ms around it."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, start.elapsed_time(end), out
+
+
+def graph_step_check(model, enc, kk, gen, steps, check_at):
+    """Each step at `check_at` of a `steps` chain: the cached graph's replay
+    against the eager reverse_step on the same state, with the generator in
+    the same state for both (so the draws are the same). The chain goes on
+    from the eager state. Returns (max abs diff over the scale, bitwise)."""
+    model.sample(enc, kk, sample_steps=2, generator=gen)  # the graph of this key (cached: two replays)
+    entry = model.chain_graphs.last
+    st, n, _ = model.start_chain(enc, kk, sample_steps=steps, generator=gen)
+    dyn = model._sampling_dynamics()
+    worst, bitwise = 0.0, True
+    for j in range(n):
+        if j not in check_at:
+            model.reverse_step(dyn, st, 1.0, gen)
+            continue
+        g0 = gen.get_state()
+        ref = clone_tree(st)
+        model.reverse_step(dyn, ref, 1.0, gen)
+        gen.set_state(g0)
+        copy_tree(entry.static, st)
+        entry.replay()
+        torch.cuda.synchronize()
+        for k in STATE:
+            got, want = entry.static[k], ref[k]
+            bitwise &= bool(torch.equal(got, want))
+            worst = max(worst, float((got - want).abs().max() / want.abs().max().clamp_min(1e-30)))
+        st = ref
+    return worst, bitwise
+
+
+def draws_check(dev, shapes, replays=3):
+    """A captured graph of torch.randn draws from a registered generator,
+    replayed, against eager draws from the same generator state: bitwise."""
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    g0 = gen.get_state()
+    eager = [[torch.randn(sh, generator=gen, device=dev) for sh in shapes] for _ in range(replays)]
+    gen.set_state(g0)
+    static = [torch.empty(sh, device=dev) for sh in shapes]
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream(device=dev)):
+        for t, sh in zip(static, shapes):
+            t.copy_(torch.randn(sh, generator=gen, device=dev))
+    got = []
+    for _ in range(replays):
+        graph.replay()
+        got.append([t.clone() for t in static])
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for g, e in zip(got, eager) for a, b in zip(g, e))
+
+
+def graph_chain_record(model, enc, kk, gen, label, steps, batch, check_at, tol):
+    """Graph against eager for one (model, batch, bucket): the K=steps chain
+    on each path (host s and CUDA-event ms), the capture's seconds and pool
+    bytes, and the step-by-step check. Profiles are read later
+    (graph_profiles): the profiler slows what follows it."""
+    graphs = model.chain_graphs
+    n_caps = len(graphs.captures)
+    model.sample(enc, kk, sample_steps=2, generator=gen)  # warm-up step, capture, one replay
+    if len(graphs.captures) != n_caps + 1:
+        raise RuntimeError(f"{label}: {len(graphs.captures) - n_caps} captures for one new shape")
+    cap = graphs.captures[-1]
+    torch.cuda.synchronize()
+    egnn_edge.launches = 0
+    g_s, g_ms, out = timed_chain(lambda: model.sample(enc, kk, sample_steps=steps, generator=gen))
+    g_launches = egnn_edge.launches
+    e_s, e_ms, out_e = timed_chain(lambda: model.sample(enc, kk, sample_steps=steps, generator=gen,
+                                                        cuda_graph=False))
+    e_launches = egnn_edge.launches - g_launches
+    for o in (out, out_e):
+        if not all(torch.isfinite(o[k]).all() for k in ("lig_x", "lig_h")):
+            raise RuntimeError(f"{label}: a chain's output is not finite")
+    per_step = launches_per_step(model, kk)
+    if g_launches != e_launches or g_launches != per_step * steps or graphs.last.launches != per_step:
+        raise RuntimeError(f"{label}: launches graph {g_launches}, eager {e_launches}, captured "
+                           f"{graphs.last.launches} a replay; expected {per_step} a step")
+    worst, bitwise = graph_step_check(model, enc, kk, gen, steps, check_at)
+    print(f"graph {label}: K={steps} at batch {batch}: graph {g_s:.3f} s ({g_ms / steps:.3f} ms/step on CUDA "
+          f"events, {g_s / batch:.6f} s/ligand), eager {e_s:.3f} s ({e_ms / steps:.3f} ms/step, "
+          f"{e_s / batch:.6f} s/ligand): {e_s / g_s:.2f}x; capture {cap['capture_s']:.3f} s, graph pool "
+          f"{cap['pool_bytes']} bytes (+{cap['pool_growth']}); {g_launches} launches ({per_step} a step, "
+          f"{graphs.last.launches} captured a replay); graph step vs eager step on the chain's states "
+          f"{sorted(check_at)}: max diff {worst:.3e} of scale (gate {tol:.0e}), bitwise {bitwise}", flush=True)
+    if not worst <= tol:
+        raise RuntimeError(f"{label}: a graph step differs from the eager step by {worst:.3e} of scale")
+    return dict(batch=batch, steps=steps, graph_s=g_s, graph_ms_per_step=g_ms / steps, graph_s_per_ligand=g_s / batch,
+                eager_s=e_s, eager_ms_per_step=e_ms / steps, eager_s_per_ligand=e_s / batch, speedup=e_s / g_s,
+                capture_s=cap["capture_s"], pool_bytes=cap["pool_bytes"], pool_growth=cap["pool_growth"],
+                launches=g_launches, launches_per_step=per_step, step_max_diff=worst, step_bitwise=bitwise,
+                kk=kk_layout(kk))
+
+
+def graph_profiles(model, enc, kk, gen, label, rec, steps=GRAPH_PROFILE_STEPS):
+    """Wall and device ms/step and busy share of `steps` graph replays and
+    `steps` eager steps under torch.profiler; the graph's edge-kernel
+    launches from the profiler's kernel rows against the captured count
+    times the replays."""
+    model.sample(enc, kk, sample_steps=2, generator=gen)  # cached graph
+    entry = model.chain_graphs.last
+    r0 = entry.replays
+    out = {}
+    for mode, graph in (("graph", None), ("eager", False)):
+        wall, device, kernels, edge = profiled(
+            lambda: model.sample(enc, kk, sample_steps=steps, generator=gen, cuda_graph=graph))
+        out[mode] = dict(wall_ms_per_step=wall / steps * 1e3, device_ms_per_step=device / steps * 1e3,
+                         busy=device / wall, kernels_per_step=kernels / steps, edge_launches=edge)
+    replays = entry.replays - r0
+    want = launches_per_step(model, kk) * steps
+    g, e = out["graph"], out["eager"]
+    print(f"graph {label} profile, {steps} steps: graph wall {g['wall_ms_per_step']:.3f} / device "
+          f"{g['device_ms_per_step']:.3f} ms/step, busy {g['busy']:.3f}, {g['kernels_per_step']:.0f} kernels/step; "
+          f"eager wall {e['wall_ms_per_step']:.3f} / device {e['device_ms_per_step']:.3f} ms/step, busy "
+          f"{e['busy']:.3f}, {e['kernels_per_step']:.0f} kernels/step; edge-kernel rows graph {g['edge_launches']} "
+          f"eager {e['edge_launches']} (expected {want}; captured {entry.launches} x {replays} replays)", flush=True)
+    if g["edge_launches"] != want or e["edge_launches"] != want or entry.launches * replays != want:
+        raise RuntimeError(f"{label}: profiler-counted edge launches graph {g['edge_launches']}, eager "
+                           f"{e['edge_launches']}, captured {entry.launches} x {replays}; expected {want}")
+    rec["profile"] = out
+
+
+def graph_phase(params_path, seed, dev):
+    """Phase 12: the trained flagship at batch BATCH, buckets of
+    BUCKET_WEIGHTS, K=STEPS, graph against eager; draws; successive
+    requests; the trained gvp_40kp; profiled launch counts by layout."""
+    rec = {"draws_equal": draws_check(dev, [(BATCH, 48, 3), (BATCH, 48, 10)])}
+    print(f"graph draws: a captured graph's torch.randn from a registered generator equals eager draws from the "
+          f"same state: {rec['draws_equal']}", flush=True)
+    if not rec["draws_equal"]:
+        raise RuntimeError("graph draws differ from eager draws")
+    cfg = load_config(CONFIG)
+    pad = PaddingConfig.from_config(cfg)
+    model = model_from_config(cfg, device=dev, seed=seed)
+    load_params(model, read_keystr_npz(params_path))
+    model.eval()
+    runs, chains = {}, {}
+    for n_lig in BUCKET_WEIGHTS:
+        cpx = synthetic_batch(0, batch=BATCH, n_rec_pad=pad.n_rec, n_lig_pad=n_lig, n_rec_feat=10, n_lig_feat=10,
+                              n_kp=pad.n_kp, kp_feat_dim=model.cfg.rec_nf, n_ip_pad=pad.n_ip, min_rec=260,
+                              min_lig=min(18, n_lig - 2), device=dev)
+        with torch.no_grad():
+            enc, kk = model.encode(cpx)
+            kk = model.compact_kk(enc, kk)
+        gen = torch.Generator(device=dev).manual_seed(seed + 40 + n_lig)
+        chains[n_lig] = (enc, kk, gen)
+        runs[n_lig] = graph_chain_record(model, enc, kk, gen, f"flagship bucket {n_lig}", STEPS, BATCH,
+                                         (0, 1, STEPS // 2, STEPS - 1), GRAPH_TOL[model.cd])
+    rec["flagship"] = runs
+    rec["s_per_ligand_mixture"] = {
+        mode: sum(w * runs[n][f"{mode}_s_per_ligand"] for n, w in BUCKET_WEIGHTS.items()) / sum(BUCKET_WEIGHTS.values())
+        for mode in ("graph", "eager")}
+
+    # two successive requests through one graph: different samples, neither aliased to the graph's buffers
+    enc, kk, gen = chains[32]
+    first = model.sample(enc, kk, sample_steps=10, generator=gen)
+    kept = {k: v.clone() for k, v in first.items()}
+    second = model.sample(enc, kk, sample_steps=10, generator=gen)
+    static = model.chain_graphs.last.static
+    ptrs = {static[k].data_ptr() for k in STATE}
+    differ = not torch.equal(first["lig_x"], second["lig_x"])
+    unaliased = (all(torch.equal(first[k], kept[k]) for k in kept)
+                 and not any(o[k].data_ptr() in ptrs for o in (first, second) for k in STATE))
+    rec["successive"] = dict(differ=differ, unaliased=unaliased)
+    print(f"graph successive requests (bucket 32, K=10): outputs differ {differ}; neither aliased to the graph's "
+          f"buffers and the first unchanged by the second {unaliased}", flush=True)
+    if not (differ and unaliased):
+        raise RuntimeError(f"graph successive requests: differ {differ}, unaliased {unaliased}")
+
+    # the trained gvp_40kp at batch BATCH, bucket 48
+    gcfg = load_config("configs/gvp_40kp.yml")
+    gpad = PaddingConfig.from_config(gcfg)
+    gvp = model_from_config(gcfg, device=dev, seed=seed)
+    load_params(gvp, read_keystr_npz(GVP_PARAMS))
+    gvp.eval()
+    cpx = synthetic_batch(0, batch=BATCH, n_rec_pad=gpad.n_rec, n_lig_pad=48, n_rec_feat=resolve_feature_sizes(gcfg)[0],
+                          n_lig_feat=10, n_kp=gpad.n_kp, kp_feat_dim=gvp.cfg.rec_nf, kp_vec_dim=gvp.kp_vec_dim,
+                          n_ip_pad=gpad.n_ip, min_rec=min(260, gpad.n_rec), min_lig=30, device=dev)
+    with torch.no_grad():
+        genc, gkk = gvp.encode(cpx)
+        gkk = gvp.compact_kk(genc, gkk)
+    ggen = torch.Generator(device=dev).manual_seed(seed + 90)
+    rec["gvp_40kp"] = graph_chain_record(gvp, genc, gkk, ggen, "gvp_40kp bucket 48", GVP_GRAPH_K, BATCH,
+                                         (0, 1, GVP_GRAPH_K - 1), GRAPH_TOL[gvp.cd])
+
+    # graph chains of the other edge layouts: egnn_ca on compact_kk's list (6 launches a step, seeded
+    # weights), the flagship with kl_k 0 (24 a step)
+    layouts = {}
+    ca_cfg = load_config("configs/egnn_ca.yml")
+    ca_pad = PaddingConfig.from_config(ca_cfg)
+    ca = model_from_config(ca_cfg, device=dev, seed=seed)
+    ca.eval()
+    cpx = synthetic_batch(seed, batch=FAMILY_BATCH, n_rec_pad=ca_pad.n_rec, n_lig_pad=ca_pad.n_lig,
+                          n_rec_feat=resolve_feature_sizes(ca_cfg)[0], n_lig_feat=resolve_feature_sizes(ca_cfg)[1],
+                          n_kp=ca_pad.n_kp, kp_feat_dim=ca.cfg.rec_nf, n_ip_pad=ca_pad.n_ip,
+                          min_rec=min(260, 3 * ca_pad.n_rec // 4), min_lig=min(18, ca_pad.n_lig - 2), device=dev)
+    with torch.no_grad():
+        ca_enc, ca_kk = ca.encode(cpx)
+        ca_kk = ca.compact_kk(ca_enc, ca_kk)
+    kl0_cfg = copy.deepcopy(cfg)
+    kl0_cfg["dynamics"]["kl_k"] = 0
+    kl0 = model_from_config(kl0_cfg, device=dev, seed=seed)
+    load_params(kl0, read_keystr_npz(params_path))
+    kl0.eval()
+    enc32, kk32, _ = chains[32]
+    layout_runs = (("egnn_ca_" + kk_layout(ca_kk), ca, ca_enc, ca_kk), ("flagship_kl_k0", kl0, enc32, kk32),
+                   ("flagship_dense", model, enc32, kk32), ("gvp_40kp", gvp, genc, gkk))
+
+    # every profile last: torch.profiler slows what follows it
+    for n_lig in BUCKET_WEIGHTS:
+        enc, kk, gen = chains[n_lig]
+        graph_profiles(model, enc, kk, gen, f"flagship bucket {n_lig}", runs[n_lig])
+    graph_profiles(gvp, genc, gkk, ggen, "gvp_40kp bucket 48", rec["gvp_40kp"])
+    for label, m, e, k in layout_runs:
+        g = torch.Generator(device=dev).manual_seed(seed + 7)
+        m.sample(e, k, sample_steps=2, generator=g)  # capture
+        entry = m.chain_graphs.last
+        r0 = entry.replays
+        _, _, _, edge = profiled(lambda: m.sample(e, k, sample_steps=5, generator=g))
+        want = launches_per_step(m, k) * 5
+        layouts[label] = dict(kk=kk_layout(k), profiled_edge_launches=edge, expected=want,
+                              captured=entry.launches, replays=entry.replays - r0)
+        print(f"graph layout {label} (kk {kk_layout(k)}): 5 replays, {edge} edge-kernel rows in the profile, "
+              f"expected {want} ({entry.launches} captured x {entry.replays - r0} replays)", flush=True)
+        if edge != want or entry.launches * (entry.replays - r0) != want:
+            raise RuntimeError(f"graph layout {label}: {edge} profiled edge launches, expected {want}")
+    rec["layouts"] = layouts
+    del model, gvp, ca, kl0, chains
+    torch.cuda.empty_cache()
+    return rec
+
 
 
 def main():
@@ -1867,11 +2187,11 @@ def main():
 
     egnn_mod.egnn_edge_dense = checking_wrapper
     try:
-        out_k = model.sample(enc, kk, sample_steps=K10, noise=noise)
+        out_k = model.sample(enc, kk, sample_steps=K10, noise=noise, cuda_graph=False)
         egnn_mod.egnn_edge_dense = plain_wrapper
-        out_p = model.sample(enc, kk, sample_steps=K10, noise=noise)
+        out_p = model.sample(enc, kk, sample_steps=K10, noise=noise, cuda_graph=False)
         nudged = dict(noise, init_x=np.nextafter(noise["init_x"], np.float32(np.inf)))
-        out_pu = model.sample(enc, kk, sample_steps=K10, noise=nudged)
+        out_pu = model.sample(enc, kk, sample_steps=K10, noise=nudged, cuda_graph=False)
     finally:
         egnn_mod.egnn_edge_dense = real_wrapper
     torch.cuda.synchronize()
@@ -1981,6 +2301,13 @@ def main():
     torch.cuda.empty_cache()
     phase("parallel", t0)
 
+    # ---- 12. the reverse chain as a captured CUDA graph, against eager steps
+    t0 = time.perf_counter()
+    graph_record = graph_phase(args.params, args.seed, dev)
+    graph_paths = {f"graph_flagship_{n}": r["launches"] for n, r in graph_record["flagship"].items()}
+    graph_paths.update({f"graph_profiled_{k}": v["profiled_edge_launches"] for k, v in graph_record["layouts"].items()})
+    phase("graphs", t0)
+
     # ---- torch.profiler's device time of the small grids, after every timed phase (it slows what follows it)
     t0 = time.perf_counter()
     for row, a, kw, iters in PROFILE_LATER:
@@ -2004,7 +2331,8 @@ def main():
         "library_device_ms": head["library_device_ms"],
         "launches_by_path": dict(sample=main_launches, **{k: v["launches"] for k, v in serve_paths.items()},
                                  **train_paths, **{k: v["launches"] for k, v in front_paths.items()},
-                                 quality=quality_path["launches"], **family_paths, **ref_paths, **par_paths),
+                                 quality=quality_path["launches"], **family_paths, **ref_paths, **par_paths,
+                                 **graph_paths),
         "shapes": list(main_rows.values()) + family_rows + option_rows + par_rows + shape_rows,
     }]}
     record = dict(card=card, device=torch.cuda.get_device_name(0), weights=weights, slice=slice_rows,
@@ -2014,7 +2342,7 @@ def main():
                   paths={**serve_paths, **front_paths, "quality": quality_path}, families=family_records,
                   quality_gvp=gvp_quality, reference_user=dict(raw=raw_record, checkpoints=checkpoints,
                                                                 graph_options=options, encoders=encoder_rows),
-                  parallel=par_record, total_wall_s=total, **kernels)
+                  parallel=par_record, graphs=graph_record, total_wall_s=total, **kernels)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1))

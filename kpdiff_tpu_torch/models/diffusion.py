@@ -1,10 +1,14 @@
 """KeypointDiffusion: training loss and sampling (kpdiff_tpu/models/diffusion.py).
 
-The reverse-diffusion chain is a Python loop over the timestep grid (the
-JAX package's lax.scan); encode, the kk edge structure, compact_kk, the
-training loss (noise l2, the receptor encoder's OT loss and the optional
-receptor-ligand hinge) and the p(z_s | z_t) update follow the JAX package
-step for step.
+The reverse-diffusion chain (the JAX package's jitted lax.scan) is
+`start_chain`, K calls of `reverse_step` (a function of device tensors that
+updates the chain in place) and `finish_chain`. On CUDA `sample` replays a
+captured CUDA graph of the step K times (models/chain_graph.py), cached per
+shape as the JAX serving API caches its executables; on the CPU, with
+`cuda_graph=False` or under kp_shard it calls the step eagerly. Encode, the
+kk edge structure, compact_kk, the training loss (noise l2, the receptor
+encoder's OT loss and the optional receptor-ligand hinge) and the
+p(z_s | z_t) update follow the JAX package step for step.
 
 `encode` is differentiable, so that the loss trains the encoder. Which
 path the dense edges take follows from autograd: while it records (the
@@ -45,6 +49,7 @@ from torch import nn
 
 from kpdiff_tpu_torch.losses.hinge import masked_hinge_loss
 from kpdiff_tpu_torch.losses.ot import ot_loss
+from kpdiff_tpu_torch.models.chain_graph import STATE, ChainGraphs
 from kpdiff_tpu_torch.models.complex import PaddedComplex
 from kpdiff_tpu_torch.models.dynamics_egnn import EGNNDynamics
 from kpdiff_tpu_torch.models.dynamics_gvp import GVPDynamics
@@ -342,7 +347,9 @@ class KeypointDiffusion(nn.Module):
         """The EGNN dynamics with pair-MLP weights cast to the compute dtype
         once (kpdiff_tpu's precast_pair_params): edge modules and node MLPs;
         the LayerNorms stay f32. Every use site casts to that dtype anyway.
-        GVP dynamics sample as they are, as in the JAX package."""
+        GVP dynamics sample as they are, as in the JAX package. The copy is
+        keyed on the parameters' buffers and versions, as the captured
+        graphs are (`_params_key`): a graph never reads a rebuilt copy."""
         if self.cd == torch.float32 or self.gvp:
             return self.dynamics
         key = tuple((p.data_ptr(), p._version) for p in self.dynamics.parameters())
@@ -357,11 +364,25 @@ class KeypointDiffusion(nn.Module):
             self._precast = (key, dyn)
         return self._precast[1]
 
+    def _params_key(self):
+        return tuple((p.data_ptr(), p._version) for p in self.parameters())
+
+    @property
+    def chain_graphs(self) -> ChainGraphs:
+        """The captured reverse steps of this model (models/chain_graph.py)."""
+        if "_chain_graphs" not in self.__dict__:
+            self.__dict__["_chain_graphs"] = ChainGraphs()
+        return self.__dict__["_chain_graphs"]
+
+    @chain_graphs.setter
+    def chain_graphs(self, graphs: ChainGraphs):
+        self.__dict__["_chain_graphs"] = graphs
+
     @torch.no_grad()
     def sample(self, cpx: PaddedComplex, kk_edges, init_com: Optional[torch.Tensor] = None,
                return_every: int = 0, sample_steps: int = 0, eta: float = 1.0,
                noise: Optional[Dict[str, Any]] = None, generator: Optional[torch.Generator] = None,
-               kp_shard=None):
+               kp_shard=None, cuda_graph: Optional[bool] = None):
         """Reverse diffusion from encoded receptors.
 
         `sample_steps` K < T runs the strided grid; `eta` is the DDIM noise
@@ -371,34 +392,70 @@ class KeypointDiffusion(nn.Module):
         complex's device). Returns lig_x, lig_h, kp_x, lig_mask and, with
         `return_every`, frames_x / frames_h.
 
+        cuda_graph: None (the default) replays a captured CUDA graph of the
+        reverse step (`reverse_step`, `chain_graphs`) on CUDA when no
+        kp_shard is given, and runs eager on the CPU; False runs the step
+        eagerly, launch by launch (what per-launch checks and profiles by
+        module need); True asks for the graph and raises on CPU tensors or
+        with a kp_shard. A sharded chain runs eager: its steps carry
+        hand-written collectives, not yet captured. There is no fallback: a
+        failure to capture or replay raises. Graph and eager run the same
+        step function on the same inputs.
+
         kp_shard: the ShardContext of `shard_encoded` (or `data_shard`), whose
         complex and kk hold this rank's rows. Every rank of the 'model' axis
         needs a generator in the same state; `noise` may hold the global
         batch (each rank takes its rows) or this rank's rows. kp_x comes
         back with every (padded) keypoint."""
+        if cuda_graph is None:
+            cuda_graph = cpx.device.type == "cuda" and kp_shard is None
+        elif cuda_graph and kp_shard is not None:
+            raise ValueError("cuda_graph=True: a kp-sharded chain runs eager (its steps carry collectives)")
+        dyn = self._sampling_dynamics()
+        st, n_steps, init_kp_com = self.start_chain(cpx, kk_edges, init_com, sample_steps, noise, generator,
+                                                    kp_shard)
+        frames = []
+
+        def keep_frame(i, state):
+            if return_every and i % return_every == 0:
+                frames.append(tuple(state[k].clone() for k in STATE))
+
+        if cuda_graph:
+            state = self.chain_graphs.run(
+                st, lambda s: self.reverse_step(dyn, s, eta, generator), n_steps, key=(float(eta), str(self.cd)),
+                params_key=self._params_key(), generator=generator if noise is None else None,
+                after_step=keep_frame)
+            st.update(state)
+        else:
+            for i in range(n_steps):
+                self.reverse_step(dyn, st, eta, generator, kp_shard)
+                keep_frame(i, st)
+        return self.finish_chain(st, init_kp_com, frames, kp_shard)
+
+    @torch.no_grad()
+    def start_chain(self, cpx: PaddedComplex, kk_edges, init_com=None, sample_steps: int = 0,
+                    noise: Optional[Dict[str, Any]] = None, generator: Optional[torch.Generator] = None,
+                    kp_shard=None):
+        """The reverse chain before its first step: (st, K, init_kp_com).
+
+        st holds device tensors only: the state (lig_x, lig_h, kp_x), what
+        the step reads (lig_mask, lm, km, kp_h, kp_mask, kp_v, kk), the
+        schedule tables t, gamma_t, gamma_s (T = n_timesteps rows, the K
+        steps' values first, so that one graph serves every K), the step
+        index (1,) int64 at 0, and with `noise` the injected steps_x,
+        steps_h. The initial draws come from `generator` here."""
         cfg = self.cfg
         dev = cpx.device
-        b = cpx.batch_size
-        dyn = self._sampling_dynamics()
         f32 = torch.float32
         lm = cpx.lig_mask[..., None].to(f32)
         km = cpx.kp_mask[..., None].to(f32)
-
         sh = kp_shard
 
         def tensor(a, batch_dim=0):
             a = torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a, device=dev).to(f32)
             return a if sh is None else sh.local_batch(a, batch_dim)
 
-        def randn(shape):
-            if sh is None:
-                return torch.randn(shape, generator=generator, device=dev, dtype=f32)
-            return sh.local_batch(torch.randn(sh.draw_shape(shape), generator=generator, device=dev, dtype=f32))
-
-        def kp_com(kp_x):
-            return masked_com(kp_x, cpx.kp_mask) if sh is None else sh.masked_com(kp_x, cpx.kp_mask)
-
-        init_kp_com = kp_com(cpx.kp_x)
+        init_kp_com = self._kp_com(cpx.kp_x, cpx.kp_mask, sh)
         if init_com is None:
             any_rec = torch.any(cpx.rec_mask, dim=1, keepdim=True)
             init_com = torch.where(any_rec, masked_com(cpx.rec_x, cpx.rec_mask), init_kp_com)
@@ -410,8 +467,8 @@ class KeypointDiffusion(nn.Module):
             lig_x = tensor(noise["init_x"]) * lm
             lig_h = tensor(noise["init_h"]) * lm
         else:
-            lig_x = randn(cpx.lig_x.shape) * lm
-            lig_h = randn(cpx.lig_h.shape) * lm
+            lig_x = self._randn(cpx.lig_x.shape, generator, dev, sh) * lm
+            lig_h = self._randn(cpx.lig_h.shape, generator, dev, sh) * lm
         com = masked_com(lig_x, cpx.lig_mask)
         lig_x = (lig_x - com[:, None]) * lm
         kp_x = (kp_x - com[:, None]) * km
@@ -421,72 +478,109 @@ class KeypointDiffusion(nn.Module):
             grid = np.unique(np.round(np.linspace(0, T, sample_steps + 1)).astype(np.int32))[::-1].copy()
         else:
             grid = np.arange(T, -1, -1)
-        steps = np.stack([grid[:-1], grid[1:]], axis=1)
+        k = len(grid) - 1
+        t_int, s_int = np.zeros(T, np.float32), np.zeros(T, np.float32)
+        t_int[:k], s_int[:k] = grid[:-1], grid[1:]
+        t_tab = torch.as_tensor(t_int, device=dev) / T
+        st = dict(lig_x=lig_x, lig_h=lig_h, kp_x=kp_x, lig_mask=cpx.lig_mask, lm=lm, km=km, kp_h=cpx.kp_h,
+                  kp_mask=cpx.kp_mask, kp_v=cpx.kp_v, kk=kk_edges, t=t_tab, gamma_t=self.schedule.gamma(t_tab),
+                  gamma_s=self.schedule.gamma(torch.as_tensor(s_int, device=dev) / T),
+                  index=torch.zeros(1, dtype=torch.int64, device=dev))
         if noise is not None:
-            steps_x, steps_h = tensor(noise["steps_x"], 1), tensor(noise["steps_h"], 1)
+            st["steps_x"], st["steps_h"] = tensor(noise["steps_x"], 1), tensor(noise["steps_h"], 1)
+        return st, k, init_kp_com
 
-        frames = []
-        for i, (t_int, s_int) in enumerate(steps.tolist()):
-            s_arr = torch.full((b,), float(s_int), dtype=f32, device=dev) / T
-            t_arr = torch.full((b,), float(t_int), dtype=f32, device=dev) / T
-            gamma_s = self.schedule.gamma(s_arr)
-            gamma_t = self.schedule.gamma(t_arr)
-            sigma2_ts, sigma_ts, alpha_ts = sigma_and_alpha_t_given_s(gamma_t, gamma_s)
-            sigma_s = sigma_from_gamma(gamma_s)
-            sigma_t = sigma_from_gamma(gamma_t)
+    @torch.no_grad()
+    def reverse_step(self, dyn, st: Dict[str, Any], eta: float = 1.0, generator: Optional[torch.Generator] = None,
+                     kp_shard=None):
+        """One step of p(z_s | z_t) on the chain `st` (`start_chain`) in place:
+        reads its t and s through st["index"], updates lig_x, lig_h and kp_x
+        and advances the index. Device tensors only, no host values that
+        change from step to step, no synchronisation: the eager loop and the
+        captured graph run this one function."""
+        f32 = torch.float32
+        i = st["index"]
+        lig_x, lig_h, kp_x, lm, km = st["lig_x"], st["lig_h"], st["kp_x"], st["lm"], st["km"]
+        rows = i.expand(lig_x.shape[0])
+        t_arr = st["t"].index_select(0, rows)
+        gamma_t = st["gamma_t"].index_select(0, rows)
+        gamma_s = st["gamma_s"].index_select(0, rows)
+        sigma2_ts, sigma_ts, alpha_ts = sigma_and_alpha_t_given_s(gamma_t, gamma_s)
+        sigma_s = sigma_from_gamma(gamma_s)
+        sigma_t = sigma_from_gamma(gamma_t)
 
-            eps_h, eps_x = self._apply_dynamics(dyn, lig_x, lig_h, cpx.lig_mask, kp_x, cpx.kp_h, cpx.kp_mask, t_arr,
-                                                kk_edges, cpx.kp_v, kp_shard=sh)
+        eps_h, eps_x = self._apply_dynamics(dyn, lig_x, lig_h, st["lig_mask"], kp_x, st["kp_h"], st["kp_mask"],
+                                            t_arr, st["kk"], st["kp_v"], kp_shard=kp_shard)
 
-            if eta == 1.0:
-                # reference ancestral step, kept verbatim
-                var_term = (sigma2_ts / alpha_ts / sigma_t)[:, None, None]
-                a_ts = alpha_ts[:, None, None]
-                mu_x = lig_x / a_ts - var_term * eps_x
-                mu_h = lig_h / a_ts - var_term * eps_h
-                sigma = (sigma_ts * sigma_s / sigma_t)[:, None, None]
-            else:
-                alpha_s = alpha_from_gamma(gamma_s)[:, None, None]
-                alpha_t = alpha_from_gamma(gamma_t)[:, None, None]
-                sig_t = sigma_t[:, None, None]
-                sig_s = sigma_s[:, None, None]
-                sig_n = eta * (sigma_ts * sigma_s / sigma_t)[:, None, None]
-                dir_coef = torch.sqrt(torch.clamp(sig_s ** 2 - sig_n ** 2, min=0.0))
-                mu_x = alpha_s * (lig_x - sig_t * eps_x) / alpha_t + dir_coef * eps_x
-                mu_h = alpha_s * (lig_h - sig_t * eps_h) / alpha_t + dir_coef * eps_h
-                sigma = sig_n
+        if eta == 1.0:
+            # reference ancestral step, kept verbatim
+            var_term = (sigma2_ts / alpha_ts / sigma_t)[:, None, None]
+            a_ts = alpha_ts[:, None, None]
+            mu_x = lig_x / a_ts - var_term * eps_x
+            mu_h = lig_h / a_ts - var_term * eps_h
+            sigma = (sigma_ts * sigma_s / sigma_t)[:, None, None]
+        else:
+            alpha_s = alpha_from_gamma(gamma_s)[:, None, None]
+            alpha_t = alpha_from_gamma(gamma_t)[:, None, None]
+            sig_t = sigma_t[:, None, None]
+            sig_s = sigma_s[:, None, None]
+            sig_n = eta * (sigma_ts * sigma_s / sigma_t)[:, None, None]
+            dir_coef = torch.sqrt(torch.clamp(sig_s ** 2 - sig_n ** 2, min=0.0))
+            mu_x = alpha_s * (lig_x - sig_t * eps_x) / alpha_t + dir_coef * eps_x
+            mu_h = alpha_s * (lig_h - sig_t * eps_h) / alpha_t + dir_coef * eps_h
+            sigma = sig_n
 
-            if noise is not None:
-                n_x, n_h = steps_x[i], steps_h[i]
-            else:
-                n_x, n_h = randn(lig_x.shape), randn(lig_h.shape)
-            lig_x = (mu_x + sigma * n_x) * lm
-            lig_h = (mu_h + sigma * n_h) * lm
+        if "steps_x" in st:
+            n_x, n_h = st["steps_x"].index_select(0, i)[0], st["steps_h"].index_select(0, i)[0]
+        else:
+            n_x = self._randn(lig_x.shape, generator, lig_x.device, kp_shard)
+            n_h = self._randn(lig_h.shape, generator, lig_x.device, kp_shard)
+        new_x = (mu_x + sigma * n_x) * lm
+        new_h = (mu_h + sigma * n_h) * lm
 
-            com = masked_com(lig_x, cpx.lig_mask)
-            lig_x = (lig_x - com[:, None]) * lm
-            kp_x = (kp_x - com[:, None]) * km
-            if return_every and i % return_every == 0:
-                frames.append((lig_x, lig_h, kp_x))
+        com = masked_com(new_x, st["lig_mask"])
+        lig_x.copy_((new_x - com[:, None]) * lm)
+        lig_h.copy_(new_h)
+        kp_x.copy_((kp_x - com[:, None]) * km)
+        i.add_(1)
 
-        final_com = kp_com(kp_x)
-        lig_x = (lig_x - final_com[:, None] + init_kp_com[:, None]) * lm
-        kp_x = (kp_x - final_com[:, None] + init_kp_com[:, None]) * km
+    def finish_chain(self, st: Dict[str, Any], init_kp_com: torch.Tensor, frames=(), kp_shard=None):
+        """The chain's outputs from its final state: back to the input frame,
+        features unnormalised, fake atoms masked, frames (F x (lig_x, lig_h,
+        kp_x) states) in the input frame."""
+        cfg = self.cfg
+        sh = kp_shard
+        lm, km, lig_mask, kp_mask = st["lm"], st["km"], st["lig_mask"], st["kp_mask"]
+        final_com = self._kp_com(st["kp_x"], kp_mask, sh)
+        lig_x = (st["lig_x"] - final_com[:, None] + init_kp_com[:, None]) * lm
+        kp_x = (st["kp_x"] - final_com[:, None] + init_kp_com[:, None]) * km
         if sh is not None:
             kp_x = sh.gather(kp_x)
-        lig_h = lig_h * cfg.lig_feat_norm_constant
+        lig_h = st["lig_h"] * cfg.lig_feat_norm_constant
 
-        out = {"lig_x": lig_x, "lig_h": lig_h, "kp_x": kp_x, "lig_mask": cpx.lig_mask}
+        out = {"lig_x": lig_x, "lig_h": lig_h, "kp_x": kp_x, "lig_mask": lig_mask}
         if cfg.use_fake_atoms:
-            out["lig_mask"] = remove_fake_atoms(lig_h, cpx.lig_mask)
-        if return_every:
+            out["lig_mask"] = remove_fake_atoms(lig_h, lig_mask)
+        if frames:
             f_x = torch.stack([f[0] for f in frames])
             f_h = torch.stack([f[1] for f in frames])
-            f_kp = torch.stack([f[2] for f in frames])
-            f_kp_com = torch.stack([kp_com(k) for k in f_kp])  # (F, B, 3)
+            f_kp_com = torch.stack([self._kp_com(f[2], kp_mask, sh) for f in frames])  # (F, B, 3)
             out["frames_x"] = (f_x - f_kp_com[:, :, None] + init_kp_com[None, :, None]) * lm[None]
             out["frames_h"] = f_h * cfg.lig_feat_norm_constant
         return out
+
+    @staticmethod
+    def _kp_com(kp_x, kp_mask, kp_shard=None):
+        return masked_com(kp_x, kp_mask) if kp_shard is None else kp_shard.masked_com(kp_x, kp_mask)
+
+    @staticmethod
+    def _randn(shape, generator, dev, kp_shard=None):
+        """Standard normal draws in f32; with kp_shard drawn for the global
+        batch and this rank's rows taken."""
+        if kp_shard is None:
+            return torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
+        return kp_shard.local_batch(torch.randn(kp_shard.draw_shape(shape), generator=generator, device=dev,
+                                                dtype=torch.float32))
 
 
 def _ot_kwargs(loss_cfg: Dict[str, Any]) -> Dict[str, Any]:

@@ -21,7 +21,11 @@ so, `aligned_rows` copies other tensors into it).
 with nvcc at first use into `kpdiff_tpu_torch/_build/`, loaded with ctypes)
 or raises; on CPU tensors it runs `egnn_edge_dense_plain`, the same function
 in plain PyTorch with the same rounding places. There is no fallback from
-the kernel to the plain version. `launches` counts kernel launches.
+the kernel to the plain version. `launches` counts kernel launches;
+`captured` counts the calls recorded into a CUDA graph while a stream
+captures (they launch nothing then): the graph runner
+(`models/chain_graph.py`) adds a graph's captured count to `launches` at
+every replay.
 """
 from __future__ import annotations
 
@@ -36,7 +40,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-launches = 0  # kernel launches made by egnn_edge_dense (CUDA tensors only)
+launches = 0  # kernel launches made by egnn_edge_dense (CUDA tensors only), replays of captured ones included
+captured = 0  # calls recorded into a CUDA graph (no launch at the call; each replay launches them)
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "egnn_edge.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
@@ -331,7 +336,7 @@ def egnn_edge_dense(a_es, a_ed, a_cs, a_cd, w_edij, w_cdij, w2e, b2e, attw, atb,
     (`pack_w2`). b2e/b2c, attw and wout (H); atb (1). x_s (B,Ns,3),
     x_d (B,Nd,3); adj (B,Ns,Nd) bool.
     """
-    global launches
+    global launches, captured
     args = (a_es, a_ed, a_cs, a_cd, w_edij, w_cdij, w2e, b2e, attw, atb, w2c, b2c, wout, x_s, x_d, adj)
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"compute_dtype {compute_dtype} is not supported (float32, bfloat16)")
@@ -342,7 +347,10 @@ def egnn_edge_dense(a_es, a_ed, a_cs, a_cd, w_edij, w_cdij, w2e, b2e, attw, atb,
         return egnn_edge_dense_plain(*args, use_tanh=use_tanh, coords_range=coords_range,
                                      compute_dtype=compute_dtype)
     out = _launch(False, args, lda, use_tanh, coords_range, compute_dtype)
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
     return out
 
 

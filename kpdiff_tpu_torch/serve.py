@@ -10,14 +10,15 @@ run once, sample many pockets.
 Each request's ligand sizes ("random" from the run's size histogram, "ref"
 from the reference ligand, or an int) are sorted in descending order and
 sampled in chunks of at most `batch_size`; each chunk is padded to the
-smallest ligand bucket that fits its largest ligand, encoded once, its
-static kk edges compacted with a grow-only cap, and sampled under no_grad
-(so every dense edge takes the CUDA kernel). Bond perception runs on the
-way out and molecules that fail to build are dropped.
-
-Known difference from the JAX sampler: a chunk holds only the molecules it
-samples, where the JAX one repeat-pads every chunk to `batch_size` to reuse
-one compiled executable.
+smallest ligand bucket that fits its largest ligand and repeat-padded to
+`batch_size` rows (its last molecule again), as the JAX sampler pads it,
+so that one captured CUDA graph of the reverse step per (bucket, kk cap)
+serves every request (models/chain_graph.py; the JAX sampler reuses one
+compiled executable the same way). Each chunk is encoded once, its static
+kk edges compacted with a grow-only cap, and sampled under no_grad (so
+every dense edge takes the CUDA kernel); the padded rows are dropped before
+decoding. Bond perception runs on the way out and molecules that fail to
+build are dropped.
 
 `kp_shard_devices=n > 1` splits every chunk's keypoints over n devices, one
 rank each (parallel/kp_shard.py): rank 0 holds the requests and the front
@@ -312,16 +313,17 @@ class KeypointSampler:
                 if padded is None:
                     raise ValueError(f"pocket ({n_rec} atoms) exceeds padding capacity {self.pad.n_rec}")
                 items.append(padded)
+            items += [items[-1]] * (self.batch_size - bs)  # repeat-padded: one graph per (bucket, kk cap)
             cpx = to_complex(items, pad_b, self.model.cfg.rec_nf, self.model.kp_vec_dim, device=self.device)
             com = None
             if init_com is not None:
-                com = torch.as_tensor(np.broadcast_to(np.asarray(init_com, np.float32), (bs, 3)).copy(),
-                                      device=self.device)
+                com = torch.as_tensor(np.broadcast_to(np.asarray(init_com, np.float32),
+                                                      (self.batch_size, 3)).copy(), device=self.device)
             t1 = time.perf_counter()
             out, layout = self._run(cpx, com)
             self._sync()
             t2 = time.perf_counter()
-            ligands = decode_ligands(out, self.lig_elements)
+            ligands = decode_ligands({k: v[:bs] for k, v in out.items()}, self.lig_elements)
             t3 = time.perf_counter()
             for coords, elements in ligands:
                 mol = build_molecule(coords, elements)

@@ -8,10 +8,14 @@ Builds --config (default configs/egnn_40kp.yml; any family of configs/) at
 full width and depth (seeded random weights unless --params names a keystr
 npz), encodes a synthetic batch of 128 pockets per ligand bucket, compacts kk as
 the samplers do (--own_kk keeps the encoder's dense or block kk), and runs
-10 strided sampling steps under torch.profiler.
-Prints, per bucket, the wall time per step, the device time per step summed
-over kernels, their ratio (the device's busy share) and the kernels that
-take the most device time. For an EGNN config, then, for each shape of the
+10 strided sampling steps under torch.profiler, eagerly (cuda_graph=False:
+the step's kernels launched one by one, as the per-launch listing below
+needs), then 10 replays of the step's captured CUDA graph (the samplers'
+default path, models/chain_graph.py).
+Prints, per bucket and path, the wall time per step, the device time per
+step summed over kernels, their ratio (the device's busy share) and, for
+the eager steps, the kernels that take the most device time; for the graph,
+its capture's seconds and pool bytes. For an EGNN config, then, for each shape of the
 edge kernel on that bucket's path, one launch of the kernel's profiling
 build (-DEGNN_EDGE_PHASE_CLOCKS) on the inputs the path gave it: the share
 of the warps' SM clocks spent in each in-kernel phase, for each chain's
@@ -197,7 +201,7 @@ def module_device_ms(model, enc, kk, gen, modules):
     for (label, cls, name), (_, _, fn) in zip(modules, originals):
         setattr(cls, name, capture(label, fn))
     try:
-        model.sample(enc, kk, sample_steps=1, generator=gen)
+        model.sample(enc, kk, sample_steps=1, generator=gen, cuda_graph=False)
     finally:
         for cls, name, fn in originals:
             setattr(cls, name, fn)
@@ -263,7 +267,7 @@ def main():
         real = egnn_mod.egnn_edge_dense
         egnn_mod.egnn_edge_dense = recording
         try:
-            model.sample(enc, kk, sample_steps=2, generator=gen)  # warm-up
+            model.sample(enc, kk, sample_steps=2, generator=gen, cuda_graph=False)  # warm-up
         finally:
             egnn_mod.egnn_edge_dense = real
         torch.cuda.synchronize()
@@ -277,7 +281,7 @@ def main():
         try:
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                model.sample(enc, kk, sample_steps=STEPS, generator=gen)
+                model.sample(enc, kk, sample_steps=STEPS, generator=gen, cuda_graph=False)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
         finally:
@@ -286,7 +290,17 @@ def main():
         table = _kernel_table(prof, STEPS, wall)
         layout = ("block" if isinstance(kk, dict) else f"nbr{int(kk[0].shape[-1])}" if isinstance(kk, tuple)
                   else "dense")
-        lines = [f"bucket {n_lig}: kk={layout} {table[0]}"] + table[1:]
+        lines = [f"bucket {n_lig}: kk={layout} eager steps: {table[0]}"] + table[1:]
+        model.sample(enc, kk, sample_steps=2, generator=gen)  # the step's graph: warm-up step and capture
+        cap = model.chain_graphs.captures[-1]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as gprof:
+            t0 = time.perf_counter()
+            model.sample(enc, kk, sample_steps=STEPS, generator=gen)
+            torch.cuda.synchronize()
+            gwall = time.perf_counter() - t0
+        lines.append(f"  CUDA graph replays: {_kernel_table(gprof, STEPS, gwall)[0]}; capture "
+                     f"{cap['capture_s']:.3f} s, graph pool {cap['pool_bytes']} bytes, "
+                     f"{cap['launches_per_replay']} edge-kernel launches a replay")
         # the edge kernel launch by launch: profiled device time beside active pairs
         kern = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
                        and "egnn_edge_" in e.name), key=lambda e: e.time_range.start)
@@ -300,7 +314,7 @@ def main():
                              f"at {rows[-1][1]} pairs")
         elif chain:
             lines.append(f"  edge kernel: {len(kern)} kernel events for {len(chain)} launches (not matched)")
-        step_ms = _device_ms(lambda: model.sample(enc, kk, sample_steps=1, generator=gen))
+        step_ms = _device_ms(lambda: model.sample(enc, kk, sample_steps=1, generator=gen, cuda_graph=False))
         by_module = module_device_ms(model, enc, kk, gen, GVP_MODULES if model.gvp else EGNN_MODULES)
         total = sum(ms for _, ms in by_module.values())
         lines.append(f"  one reverse step {step_ms:.3f} device ms; its calls replayed by module (device ms, share): "

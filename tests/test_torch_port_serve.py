@@ -139,7 +139,8 @@ def test_positional_jax_style_call(port_run, monkeypatch):
     """(rec_pos, rec_feat, rec_res_idx, interface_points, init_com,
     ref_n_atoms, n_mols, ligand_size) positionally, as the JAX sampler takes
     them: the interface points land in the complex's ip_x and init_com in
-    the sampler's init_com; 'ref' takes ref_n_atoms."""
+    the sampler's init_com; 'ref' takes ref_n_atoms. The chunk of 3 is
+    repeat-padded to batch_size 4, as the JAX sampler pads it."""
     _, run, _, _ = port_run
     sampler = KeypointSampler(run, batch_size=4, device="cpu", seed=1, sample_steps=2)
     runs = _spy_runs(sampler, monkeypatch)
@@ -148,10 +149,10 @@ def test_positional_jax_style_call(port_run, monkeypatch):
     mols = sampler.sample_for_arrays(rec_pos, rec_feat, res, ips, com, 7, 3, "ref")
     assert len(runs) == 1
     cpx, init_com, _ = runs[0]
-    np.testing.assert_array_equal(cpx.ip_x[:, :5].numpy(), np.broadcast_to(ips, (3, 5, 3)))
-    assert cpx.ip_mask.sum(1).tolist() == [5, 5, 5]
-    np.testing.assert_array_equal(init_com.numpy(), np.broadcast_to(com, (3, 3)))
-    assert cpx.lig_mask.sum(1).tolist() == [7, 7, 7] and cpx.lig_x.shape[1] == 8
+    np.testing.assert_array_equal(cpx.ip_x[:, :5].numpy(), np.broadcast_to(ips, (4, 5, 3)))
+    assert cpx.ip_mask.sum(1).tolist() == [5, 5, 5, 5]
+    np.testing.assert_array_equal(init_com.numpy(), np.broadcast_to(com, (4, 3)))
+    assert cpx.lig_mask.sum(1).tolist() == [7, 7, 7, 7] and cpx.lig_x.shape[1] == 8
     assert sampler.last_request["chunks"] == [dict(batch=3, bucket=8, kk="dense", sizes=[7, 7, 7])]
     assert all(isinstance(m, BuiltMolecule) for m in mols)
     with pytest.raises(ValueError, match="ref_n_atoms"):
@@ -161,8 +162,8 @@ def test_positional_jax_style_call(port_run, monkeypatch):
 def test_request_complex_and_sizes_match_jax(port_run, monkeypatch):
     """ligand_size='random': the sizes are the JAX sampler's draws for the
     same seed, sorted in descending order; each chunk's complex equals the
-    JAX _to_complex of the JAX pad_item items at the same bucket (the JAX
-    chunk's repeat-padding rows aside)."""
+    JAX _to_complex of the JAX pad_item items at the same bucket, repeat
+    padded to batch_size as the JAX sampler pads them."""
     cfg, run, _, _ = port_run
     sampler = KeypointSampler(run, batch_size=4, device="cpu", seed=7, sample_steps=2)
     runs = _spy_runs(sampler, monkeypatch)
@@ -185,7 +186,7 @@ def test_request_complex_and_sizes_match_jax(port_run, monkeypatch):
         items += [items[-1]] * (4 - len(items))  # the JAX sampler's repeat-padding to batch_size
         jcpx = j_to_complex(items, pad_b, jm, None)
         for f in COMPLEX_FIELDS:
-            got, exp = getattr(cpx, f).numpy(), np.asarray(getattr(jcpx, f))[: c["batch"]]
+            got, exp = getattr(cpx, f).numpy(), np.asarray(getattr(jcpx, f))
             assert got.shape == exp.shape and got.dtype == exp.dtype, f
             np.testing.assert_array_equal(got, exp, err_msg=f)
 
