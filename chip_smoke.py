@@ -40,11 +40,13 @@ Phases, each timed on its own line; any failure raises (non-zero exit):
      complexes, full padding): one batch of 4 through loss and backward on
      the card and on the CPU, f32 (gated) and bf16 (loss gated, gradients
      reported), TF32 off; 20 optimizer steps at batch 64 through the port's
-     trainer (the dense edges take the kernel's plain version under
-     autograd), with device and host ms/step and peak memory; the held-out
-     loss under no_grad through the kernel (12 launches per batch) against
-     the same pass through the plain version; a checkpoint, its npz export
-     and one sampling request served from it;
+     trainer on its default path, replays of the step's captured CUDA graphs
+     (the dense edges take the kernel's plain version under autograd), with
+     device and host ms/step and peak memory; the held-out loss under
+     no_grad through the kernel (replays of the loss's captured graphs, 12
+     launches per batch) against the same pass through the plain version,
+     eagerly; a checkpoint, its npz export and one sampling request served
+     from it;
   7. front ends: cli.byop on the receptor PDB and on its mmCIF rendering,
      cli.sample on the two held-out pockets (--visualize), one POST
      /sample_files to cli.serve_http on 127.0.0.1, and cli.train with the
@@ -60,8 +62,8 @@ Phases, each timed on its own line; any failure raises (non-zero exit):
      chain; for egnn_ca and egnn_all_atom a 5-step chain on the encoder's own
      kk (dense 128 x 128, blocks) with every launch against the plain
      version; loss and gradients on the card against the CPU (f32, dropout
-     0); 5 optimizer steps with the config's dropout, remat and grad_accum,
-     ms/step and peak memory; the kernel against its plain version on each
+     0); 5 optimizer steps with the config's dropout, remat and grad_accum
+     through the trainer's captured graphs, ms/step and peak memory; the kernel against its plain version on each
      new shape's first launch; then phase 8's protocol on the trained GVP
      artifacts/gvp_40kp_trained_params.npz, gated on validity >= 0.95,
      connectivity >= 0.82 and atom_type_kl <= 0.03, beside
@@ -111,6 +113,24 @@ Phases, each timed on its own line; any failure raises (non-zero exit):
      48 the same way (K=50); and the profiled launches of graph chains on
      the other layouts (egnn_ca on compact_kk's list, 6 a step; the
      flagship with kl_k 0, 24 a step).
+ 13. train graphs: the optimizer step and the held-out loss as captured
+     CUDA graphs against eager, on the trained flagship at batch 64 with
+     phase 6's first 10 batches (two ligand buckets alternating) and
+     injected (t, eps): 10 steps through graphs against 10 eager steps from
+     the same state, in f32 and with the config's bf16 pair MLPs, losses
+     and parameter checksum within rel 1e-5 / 1e-3 (phase 11's bounds for two
+     trainers; bitwise expected), ms a step on CUDA events and on the host
+     clock for both (steps after each bucket's first), each capture's
+     seconds, the train graphs' pool bytes and the peak memory with a third
+     bucket (48) captured, 4 steps of each path under torch.profiler (wall
+     and device ms a step, busy share, kernels a step); the held-out loss
+     graphs on phase 6's held-out batches (12 edge-kernel launches a batch:
+     captured x replays plus the first batch's eager warm-up) against the plain version
+     eagerly; and the caches keyed on parameter versions after replayed
+     steps: the analyzer's chain (encode -> sample on the graph path, K=10,
+     injected noise) step by step against a fresh model loaded with the
+     trained weights (bf16 tolerance), the bf16 sampling copy and the
+     kernel's packed weights bitwise, the chain graph recaptured once.
 Every row of the kernel table carries `device_ms`, the kernel's device time
 per launch with the launches queued behind a spin kernel, beside `ms` (CUDA
 events around back-to-back calls of the Python wrapper, which the host may
@@ -237,6 +257,9 @@ PAR_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
 # (bitwise expected; the kNN pairs' scatter-adds sum in another order from run to run on the card)
 GRAPH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 GRAPH_PROFILE_STEPS, GVP_GRAPH_K = 10, 50
+# phase 13: graph against eager training steps on phase 6's batches; phase 11's bounds for two trainers
+GRAPH_TRAIN_STEPS, GRAPH_TRAIN_PROFILED, GRAPH_TRAIN_CHAIN_K = 10, 4, 10
+GRAPH_TRAIN_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
 RESIDUE = (("N", "N"), ("CA", "C"), ("C", "C"), ("O", "O"), ("CB", "C"), ("CG", "C"), ("CD", "C"), ("OE1", "O"))
 
 
@@ -579,8 +602,8 @@ def train_phase(params_path, seed, dev):
     torch.cuda.synchronize()
     eval_launches = egnn_edge.launches
     egnn_mod.egnn_edge_dense = egnn_edge.egnn_edge_dense_plain
-    try:
-        ev_plain = evaluate(model, fixed, dev, torch.Generator(device=dev).manual_seed(seed + 9))
+    try:  # eagerly: the cached loss graph would replay the kernel
+        ev_plain = evaluate(model, fixed, dev, torch.Generator(device=dev).manual_seed(seed + 9), cuda_graph=False)
     finally:
         egnn_mod.egnn_edge_dense = real
     n_layers = cfg["dynamics"]["n_layers"]
@@ -620,7 +643,7 @@ def train_phase(params_path, seed, dev):
                   eval_kernel=ev_kernel, eval_plain=ev_plain, eval_rel_err=eval_err, eval_batches=len(eval_batches),
                   eval_launches=eval_launches, serve_launches=serve_launches)
     return (record, dict(train_steps=train_launches, train_eval=eval_launches, train_serve=serve_launches),
-            (batches[:PAR_STEPS], iters_per_epoch))
+            (batches[:PAR_STEPS], iters_per_epoch), (batches[:GRAPH_TRAIN_STEPS], eval_batches, iters_per_epoch))
 
 
 def sync():
@@ -1623,7 +1646,7 @@ def parallel_train(params_path, seed, dev, batches, iters_per_epoch):
                 cfg[section]["compute_dtype"] = dtype_name
             tcfg = train_config_from(cfg)
             out = {}
-            for label, kw in (("plain", {}), ("parallel", dict(mesh=mesh, kp_axis="model"))):
+            for label, kw in (("plain", dict(cuda_graph=False)), ("parallel", dict(mesh=mesh, kp_axis="model"))):
                 model = model_from_config(cfg, device=dev, seed=seed)
                 load_params(model, flat)
                 state = trainer.init_train_state(model, tcfg)
@@ -2039,6 +2062,245 @@ def graph_phase(params_path, seed, dev):
     return rec
 
 
+# ---- phase 13: the optimizer step and the held-out loss as captured CUDA graphs
+
+def _pad_ligands(batch, t_eps, n_lig):
+    """`batch` and its (t, eps) with the ligand axis padded to n_lig (zeros, masked out): a third bucket's shape."""
+    extra = n_lig - batch.lig_x.shape[1]
+    pad3 = lambda x: torch.nn.functional.pad(x, (0, 0, 0, extra))  # noqa: E731
+    padded = batch.replace(lig_x=pad3(batch.lig_x), lig_h=pad3(batch.lig_h),
+                           lig_mask=torch.nn.functional.pad(batch.lig_mask, (0, extra)))
+    return padded, (t_eps[0],) + tuple(np.pad(a, ((0, 0), (0, extra), (0, 0))) for a in t_eps[1:])
+
+
+def _train_run(cfg, flat, dev, seed, batches, t_eps, iters_per_epoch, graph, before=None):
+    """len(batches) optimizer steps with injected (t, eps) of a model loaded
+    with `flat`, through captured graphs (graph=True) or eagerly:
+    (model, state, step_fn, metrics rows, CUDA-event ms, host ms)."""
+    model = model_from_config(cfg, device=dev, seed=seed)
+    load_params(model, flat)
+    if before is not None:
+        before(model)
+    tcfg = train_config_from(cfg)
+    state = trainer.init_train_state(model, tcfg)
+    step_fn = trainer.make_train_step(tcfg, iters_per_epoch, cuda_graph=graph)
+    rows, ms, host = [], [], []
+    for b, te in zip(batches, t_eps):
+        b = b.to(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        start.record()
+        rows.append(step_fn(state, b, t_eps=te))
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - h0) * 1e3)
+        ms.append(start.elapsed_time(end))
+    return model, state, step_fn, rows, ms, host
+
+
+def _edge_packs(module):
+    """The packed kernel weights of every kernel-path EGNNEdgeDense under `module`, as lists of tensors."""
+    out = []
+    for m in module.modules():
+        if isinstance(m, egnn_mod.EGNNEdgeDense) and m.kernel_ok:
+            out.append([t for v in m._kernel_weights().values()
+                        for t in ((v,) if torch.is_tensor(v) else v) if torch.is_tensor(t)])
+    return out
+
+
+def train_graph_phase(params_path, seed, dev, batches, eval_batches, iters_per_epoch):
+    """Phase 13: the trained flagship at batch 64 on phase 6's batches (two
+    ligand buckets alternating) with injected (t, eps): graph against eager
+    steps from the same state (f32 and bf16, losses and checksum within
+    GRAPH_TRAIN_TOL), ms a step on both clocks, a profile of each path, the
+    captures' seconds, pool bytes and peak memory with a third bucket
+    captured, the held-out loss graph (launches captured x replays, against
+    the plain version), and the caches keyed on parameter versions after
+    replayed steps against a fresh model loaded with the trained weights."""
+    flat = read_keystr_npz(params_path)
+    rng = np.random.default_rng(seed + 31)
+    n_t = load_config(CONFIG)["diffusion"]["n_timesteps"]
+    t_eps = [(rng.integers(0, n_t, b.batch_size), rng.normal(size=tuple(b.lig_x.shape)).astype(np.float32),
+              rng.normal(size=tuple(b.lig_h.shape)).astype(np.float32)) for b in batches]
+    buckets = [int(b.lig_x.shape[1]) for b in batches]
+    first = {buckets.index(k) for k in set(buckets)}  # each bucket's first step: the warm-up and the capture
+    timed = [i for i in range(len(batches)) if i not in first]
+    rec = dict(buckets=buckets, timed_steps=timed)
+
+    # the analyzer's chain on the sampling path, built before training (bf16 copy, packed weights, chain graph)
+    cfg = load_config(CONFIG)
+    pad = PaddingConfig.from_config(cfg)
+    cpx = synthetic_batch(0, batch=FAMILY_BATCH, n_rec_pad=pad.n_rec, n_lig_pad=32, n_rec_feat=10, n_lig_feat=10,
+                          n_kp=pad.n_kp, kp_feat_dim=128, n_ip_pad=pad.n_ip, min_rec=260, min_lig=18, device=dev)
+    nrng = np.random.default_rng(seed + 33)
+    noise = {k: nrng.normal(size=s).astype(np.float32) for k, s in (
+        ("init_x", (FAMILY_BATCH, 32, 3)), ("init_h", (FAMILY_BATCH, 32, 10)),
+        ("steps_x", (GRAPH_TRAIN_CHAIN_K, FAMILY_BATCH, 32, 3)),
+        ("steps_h", (GRAPH_TRAIN_CHAIN_K, FAMILY_BATCH, 32, 10)))}
+
+    def analyzer_chain(model):
+        """encode -> sample as the analyzer calls them (the graph path), with injected noise and every frame."""
+        with torch.no_grad():
+            enc, kk = model.encode(cpx)
+            return model.sample(enc, kk, sample_steps=GRAPH_TRAIN_CHAIN_K, noise=noise, return_every=1)
+
+    for dtype_name in ("float32", "bfloat16"):
+        dcfg = copy.deepcopy(cfg)
+        for section in ("dynamics", "rec_encoder"):
+            dcfg[section]["compute_dtype"] = dtype_name
+        bf16 = dtype_name == "bfloat16"
+        torch.cuda.reset_peak_memory_stats()
+        eager = _train_run(dcfg, flat, dev, seed, batches, t_eps, iters_per_epoch, False)
+        eager_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        graph = _train_run(dcfg, flat, dev, seed, batches, t_eps, iters_per_epoch, True,
+                           before=analyzer_chain if bf16 else None)
+        (gm, gstate, gstep, grows, gms, ghost), (em, estate, estep, erows, ems, ehost) = graph, eager
+        graphs = gm.train_graphs
+        loss_err = [_rel(g["total"], e["total"]) for g, e in zip(grows, erows)]
+        sum_g, sum_e = params_checksum(gm), params_checksum(em)
+        sum_err = _rel(sum_g, sum_e)
+        bitwise = all(g == e for g, e in zip(grows, erows)) and all(
+            torch.equal(p, q) for p, q in zip(gm.parameters(), em.parameters()))
+        r = dict(losses_graph=[x["total"] for x in grows], losses_eager=[x["total"] for x in erows],
+                 loss_rel_err=loss_err, checksum_rel_err=sum_err, bitwise=bitwise, captures=len(graphs.captures),
+                 ms_graph=gms, ms_eager=ems, host_ms_graph=ghost, host_ms_eager=ehost,
+                 median_ms_graph=statistics.median(gms[i] for i in timed),
+                 median_ms_eager=statistics.median(ems[i] for i in timed),
+                 median_host_ms_graph=statistics.median(ghost[i] for i in timed),
+                 median_host_ms_eager=statistics.median(ehost[i] for i in timed),
+                 first_step_ms_graph={buckets[i]: gms[i] for i in sorted(first)}, eager_peak_memory_bytes=eager_peak)
+        tol = GRAPH_TRAIN_TOL[dtype_name]
+        print(f"train graph {dtype_name}: {len(batches)} flagship steps at batch {batches[0].batch_size} (buckets "
+              f"{buckets}) through captured graphs vs eager from the same state: loss rel err by step "
+              f"{[f'{e:.2e}' for e in loss_err]}, checksum rel err {sum_err:.3e} (gate {tol:.0e}), bitwise {bitwise}; "
+              f"{len(graphs.captures)} captures; median over steps {timed}: graph {r['median_ms_graph']:.3f} ms/step "
+              f"on CUDA events ({r['median_host_ms_graph']:.3f} on the host clock), eager {r['median_ms_eager']:.3f} "
+              f"({r['median_host_ms_eager']:.3f}): {r['median_ms_eager'] / r['median_ms_graph']:.2f}x; first step "
+              f"of each bucket through the graph (warm-up and capture) {r['first_step_ms_graph']} ms", flush=True)
+        if max(loss_err) > tol or sum_err > tol or any(x["skipped_nonfinite"] for x in grows + erows):
+            raise RuntimeError(f"train graph vs eager ({dtype_name}): losses {loss_err}, checksum {sum_err:.3e}")
+        if len(graphs.captures) != len(first) or not all(np.isfinite(x["total"]) for x in grows):
+            raise RuntimeError(f"train graph ({dtype_name}): {len(graphs.captures)} captures for buckets {buckets}")
+        rec[dtype_name] = r
+        if not bf16:
+            del gm, gstate, em, estate, graph, eager
+            torch.cuda.empty_cache()
+            continue
+
+        # a third bucket: its capture, the pool's bytes and the peak with three buckets captured
+        b48, te48 = _pad_ligands(batches[0], t_eps[0], 48)
+        gstep(gstate, b48.to(dev), t_eps=te48)
+        torch.cuda.synchronize()
+        caps = graphs.captures
+        r.update(capture_s=[c["capture_s"] for c in caps], pool_bytes=graphs.pool_bytes(),
+                 peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                 captured_buckets=[c["inputs"]["in.batch.lig_x"][1] for c in caps])
+        print(f"train graph memory: captures of buckets {r['captured_buckets']} in "
+              f"{[round(c, 3) for c in r['capture_s']]} s; graph pool {r['pool_bytes']} bytes; peak memory "
+              f"{r['peak_memory_bytes']} bytes with three buckets captured (eager run's peak {eager_peak} bytes; "
+              f"torch.cuda.max_memory_allocated)", flush=True)
+        if len(caps) != 3:
+            raise RuntimeError(f"train graph: {len(caps)} captures after a third bucket")
+
+        # under torch.profiler: GRAPH_TRAIN_PROFILED steps of each path on buckets already captured
+        prof_idx = timed[:GRAPH_TRAIN_PROFILED]
+        prof = {}
+        for mode, (st, fn) in (("graph", (gstate, gstep)), ("eager", (estate, estep))):
+            dev_batches = [(batches[i].to(dev), t_eps[i]) for i in prof_idx]
+            wall, device, kernels, _ = profiled(lambda: [fn(st, b, t_eps=te) for b, te in dev_batches])
+            n = len(prof_idx)
+            prof[mode] = dict(wall_ms_per_step=wall / n * 1e3, device_ms_per_step=device / n * 1e3,
+                              busy=device / wall, kernels_per_step=kernels / n)
+        r["profile"] = prof
+        print("train graph profile, " + "; ".join(
+            f"{m}: wall {v['wall_ms_per_step']:.3f} / device {v['device_ms_per_step']:.3f} ms/step, busy "
+            f"{v['busy']:.3f}, {v['kernels_per_step']:.0f} kernels/step" for m, v in prof.items())
+              + f" ({len(prof_idx)} steps each)", flush=True)
+
+        # the held-out loss graph on the trained weights: launches captured x replays, against the plain version
+        fixed = types.SimpleNamespace(epoch=lambda: iter(eval_batches))
+        egnn_edge.launches = 0
+        ev_graph = evaluate(gm, fixed, dev, torch.Generator(device=dev).manual_seed(seed + 9))
+        torch.cuda.synchronize()
+        ev_launches = egnn_edge.launches
+        entries = list(gm.loss_graphs._entries.values())
+        real = egnn_mod.egnn_edge_dense
+        egnn_mod.egnn_edge_dense = egnn_edge.egnn_edge_dense_plain
+        try:
+            ev_plain = evaluate(gm, fixed, dev, torch.Generator(device=dev).manual_seed(seed + 9), cuda_graph=False)
+        finally:
+            egnn_mod.egnn_edge_dense = real
+        per_batch = 2 * cfg["dynamics"]["n_layers"]
+        ev_err = {k: _rel(ev_graph[k], ev_plain[k]) for k in ev_plain}
+        replays = sum(e.replays for e in entries)
+        r["eval"] = dict(batches=len(eval_batches), launches=ev_launches, graphs=len(entries),
+                         captured_per_replay=[e.launches for e in entries], replays=replays, rel_err=ev_err,
+                         graph=ev_graph, plain=ev_plain,
+                         capture_s=[c["capture_s"] for c in gm.loss_graphs.captures],
+                         pool_bytes=gm.loss_graphs.pool_bytes())
+        print(f"train graph held-out loss: {len(eval_batches)} batches through {len(entries)} loss graphs, "
+              f"{ev_launches} edge-kernel launches ({[e.launches for e in entries]} captured x {replays} replays, "
+              f"plus the first batch's eager warm-up); against the plain version: rel err "
+              + ", ".join(f"{k} {v:.3e}" for k, v in sorted(ev_err.items()))
+              + f" (gate {LOSS_TOL[torch.bfloat16]:.0e})", flush=True)
+        if (ev_launches != per_batch * len(eval_batches) or any(e.launches != per_batch for e in entries)
+                or replays != len(eval_batches) - 1):
+            raise RuntimeError(f"held-out loss graph: {ev_launches} launches, {[e.launches for e in entries]} "
+                               f"captured, {replays} replays over {len(eval_batches)} batches")
+        if max(ev_err.values()) > LOSS_TOL[torch.bfloat16]:
+            raise RuntimeError(f"held-out loss graph vs plain: {ev_err}")
+
+        # the caches keyed on parameter versions after replayed steps: the analyzer's chain graph, step by step
+        # on the fresh model's states, against the fresh model's eager steps (free-running bf16 chains on
+        # trained weights are chaotic: their distance is reported)
+        n_chain_caps = len(gm.chain_graphs.captures)
+        got = analyzer_chain(gm)
+        entry = gm.chain_graphs.last
+        fresh = model_from_config(dcfg, device=dev, seed=seed + 1)
+        load_params(fresh, {k: v.detach().cpu().numpy() for k, v in gm.named_parameters()})
+        want = analyzer_chain(fresh)
+        free_err = max(float((got[k] - want[k]).abs().max() / want[k].abs().max().clamp_min(1e-30))
+                       for k in ("frames_x", "frames_h"))
+        with torch.no_grad():
+            enc, kk = fresh.encode(cpx)
+            st, n_steps, _ = fresh.start_chain(enc, kk, sample_steps=GRAPH_TRAIN_CHAIN_K, noise=noise)
+            fdyn = fresh._sampling_dynamics()
+            frame_err = []
+            for _ in range(n_steps):
+                ref = clone_tree(st)
+                fresh.reverse_step(fdyn, ref, 1.0)
+                copy_tree(entry.static, st)
+                entry.replay()
+                torch.cuda.synchronize()
+                frame_err.append(max(float((entry.static[k] - ref[k]).abs().max() / ref[k].abs().max().clamp_min(1e-30))
+                                     for k in STATE))
+                st = ref
+        precast_equal = all(torch.equal(a, b) for a, b in zip(gm._sampling_dynamics().state_dict().values(),
+                                                                fresh._sampling_dynamics().state_dict().values()))
+        packs_equal = all(torch.equal(a, b) for ga, fa in ((gm._sampling_dynamics(), fresh._sampling_dynamics()),
+                                                           (gm.dynamics, fresh.dynamics))
+                          for pa, pb in zip(_edge_packs(ga), _edge_packs(fa)) for a, b in zip(pa, pb))
+        change = max(float((p.detach().cpu() - torch.from_numpy(flat[n])).abs().max())
+                     for n, p in gm.named_parameters())
+        recaptured = len(gm.chain_graphs.captures) - n_chain_caps
+        r["versions"] = dict(step_rel_err=frame_err, free_running_rel_diff=free_err, precast_equal=precast_equal,
+                             packs_equal=packs_equal, chain_recaptures=recaptured, max_param_change=change)
+        print(f"train graph caches after {len(batches)} graph steps (largest parameter change {change:.3e}): the "
+              f"analyzer's chain graph (K={GRAPH_TRAIN_CHAIN_K}, batch {FAMILY_BATCH}) step by step against a fresh "
+              f"model loaded with the trained weights, on its states: max {max(frame_err):.3e} of scale (gate "
+              f"{GRAPH_TOL[torch.bfloat16]:.0e}); free-running chains {free_err:.3e} apart (reported); bf16 "
+              f"sampling copy equal {precast_equal}; edge-kernel packed weights equal {packs_equal}; chain graph "
+              f"recaptured {recaptured} time(s)", flush=True)
+        if not (max(frame_err) <= GRAPH_TOL[torch.bfloat16] and precast_equal and packs_equal and recaptured == 1):
+            raise RuntimeError(f"caches after graph steps: frames {max(frame_err):.3e}, precast {precast_equal}, "
+                               f"packs {packs_equal}, chain recaptures {recaptured}")
+        del gm, gstate, em, estate, fresh, graph, eager
+        torch.cuda.empty_cache()
+    return rec
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -2228,7 +2490,7 @@ def main():
 
     # ---- 6. train: flagship training steps, held-out loss, export -> serve
     t0 = time.perf_counter()
-    train_record, train_paths, par_batches = train_phase(args.params, args.seed, dev)
+    train_record, train_paths, par_batches, graph_train_inputs = train_phase(args.params, args.seed, dev)
     phase("train", t0)
 
     # ---- 7. front ends: byop (PDB, mmCIF), sample CLI, HTTP server, train CLI with the analyzer
@@ -2308,6 +2570,13 @@ def main():
     graph_paths.update({f"graph_profiled_{k}": v["profiled_edge_launches"] for k, v in graph_record["layouts"].items()})
     phase("graphs", t0)
 
+    # ---- 13. the optimizer step and the held-out loss as captured CUDA graphs, against eager steps
+    t0 = time.perf_counter()
+    train_graph_record = train_graph_phase(args.params, args.seed, dev, *graph_train_inputs)
+    del graph_train_inputs
+    graph_paths["train_graph_eval"] = train_graph_record["bfloat16"]["eval"]["launches"]
+    phase("train_graphs", t0)
+
     # ---- torch.profiler's device time of the small grids, after every timed phase (it slows what follows it)
     t0 = time.perf_counter()
     for row, a, kw, iters in PROFILE_LATER:
@@ -2342,7 +2611,8 @@ def main():
                   paths={**serve_paths, **front_paths, "quality": quality_path}, families=family_records,
                   quality_gvp=gvp_quality, reference_user=dict(raw=raw_record, checkpoints=checkpoints,
                                                                 graph_options=options, encoders=encoder_rows),
-                  parallel=par_record, graphs=graph_record, total_wall_s=total, **kernels)
+                  parallel=par_record, graphs=graph_record, train_graphs=train_graph_record, total_wall_s=total,
+                  **kernels)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(record, indent=1))

@@ -4,10 +4,14 @@
     python -m kpdiff_tpu_torch.cli.train --resume runs/<run_dir>
 
 Trains on one CUDA card by default and raises without one (`--device cpu`
-runs the plain PyTorch path on the CPU). A run directory holds config.yml,
-train_metrics.pkl, test_metrics.pkl and checkpoints/step_N.pt (parameters,
-optimizer state and step); `cli/export_params.py` turns a checkpoint into
-the keystr npz that both packages load. Metrics go to the pickle logs and
+runs the plain PyTorch path on the CPU). On the card each optimizer step
+and each held-out loss replays a captured CUDA graph, one per ligand
+bucket (training/train_graph.py); under `--n_devices` and with
+`rec_encoder_loss.method: exact` the step runs eagerly. A run directory
+holds config.yml, train_metrics.pkl, test_metrics.pkl and
+checkpoints/step_N.pt (parameters, optimizer state and step);
+`cli/export_params.py` turns a checkpoint into the keystr npz that both
+packages load. Metrics go to the pickle logs and
 stdout only. Every `training.sample_interval` epochs, from epoch ~0 on, the
 molecule analyzer (analysis/analyzer.py) samples a few held-out pockets and
 appends its `mol_*` row to test_metrics.pkl (`export_params --best` reads
@@ -358,19 +362,19 @@ def _start_profiler(dev):
     return prof
 
 
-def evaluate(model, test_loader, device, generator=None, test_epochs=1):
+def evaluate(model, test_loader, device, generator=None, test_epochs=1, cuda_graph=None):
     """Held-out loss over `test_epochs` passes of the test split, under
-    no_grad: the dense edges go through the CUDA kernel on a card."""
-    import torch
+    no_grad (training/train_graph.py::heldout_loss): on a card each batch
+    replays a captured graph of the loss, cached per bucket (cuda_graph
+    False: eagerly), and the dense edges go through the CUDA kernel."""
+    from kpdiff_tpu_torch.training.train_graph import heldout_loss
 
     sums, n = {}, 0
-    with torch.no_grad():
-        for _ in range(max(int(test_epochs), 1)):
-            for batch in test_loader.epoch():
-                losses = model.loss(batch.to(device), generator=generator)
-                for key, v in losses.items():
-                    sums[key] = sums.get(key, 0.0) + float(v)
-                n += 1
+    for _ in range(max(int(test_epochs), 1)):
+        for batch in test_loader.epoch():
+            for key, v in heldout_loss(model, batch.to(device), generator, cuda_graph=cuda_graph).items():
+                sums[key] = sums.get(key, 0.0) + v
+            n += 1
     return {f"test_{k}": v / max(n, 1) for k, v in sums.items()}
 
 

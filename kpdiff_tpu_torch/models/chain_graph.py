@@ -64,14 +64,26 @@ def tree_signature(tree) -> tuple:
     raise TypeError(f"a chain input of type {type(tree).__name__}")
 
 
-def clone_tree(tree):
-    """A copy of a tree with every tensor cloned (new buffers)."""
+def tree_shapes(tree, prefix: str = "") -> Dict[str, tuple]:
+    """{path: shape} of every tensor of a dict / tuple / tensor tree."""
     if torch.is_tensor(tree):
-        return tree.clone()
+        return {prefix: tuple(tree.shape)}
+    items = (tree.items() if isinstance(tree, dict) else enumerate(tree) if isinstance(tree, (tuple, list))
+             else ())
+    out = {}
+    for k, v in items:
+        out.update(tree_shapes(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def clone_tree(tree, device=None):
+    """A copy of a tree with every tensor cloned (new buffers), on `device` if given."""
+    if torch.is_tensor(tree):
+        return tree.clone() if device is None else tree.to(device, copy=True)
     if isinstance(tree, dict):
-        return {k: clone_tree(v) for k, v in tree.items()}
+        return {k: clone_tree(v, device) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(clone_tree(x) for x in tree)
+        return type(tree)(clone_tree(x, device) for x in tree)
     return tree
 
 
@@ -220,7 +232,7 @@ class ChainGraphs:
         capture_s = time.perf_counter() - t0
         entry.launches = egnn_edge.captured - before
         pool = self.pool_bytes()
-        self.captures.append(dict(inputs={k: tuple(v.shape) for k, v in entry.static.items() if torch.is_tensor(v)},
+        self.captures.append(dict(inputs=tree_shapes(entry.static),
                                   capture_s=capture_s, pool_bytes=pool,
                                   pool_growth=None if pool is None or pool_before is None else pool - pool_before,
                                   launches_per_replay=entry.launches))

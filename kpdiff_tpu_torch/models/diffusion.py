@@ -263,8 +263,7 @@ class KeypointDiffusion(nn.Module):
         kp_x = (cpx.kp_x - com[:, None]) * km
 
         if t_eps_override is not None:
-            t_int, eps_x, eps_h = (torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a, device=dev)
-                                   for a in t_eps_override)
+            t_int, eps_x, eps_h = device_t_eps(t_eps_override, dev)
             eps_x = eps_x.to(f32) * lm
             eps_h = eps_h.to(f32) * lm
         elif sh is None:
@@ -377,6 +376,32 @@ class KeypointDiffusion(nn.Module):
     @chain_graphs.setter
     def chain_graphs(self, graphs: ChainGraphs):
         self.__dict__["_chain_graphs"] = graphs
+
+    @property
+    def train_graphs(self):
+        """The captured optimizer steps of this model (training/train_graph.py)."""
+        if "_train_graphs" not in self.__dict__:
+            from kpdiff_tpu_torch.training.train_graph import TrainGraphs
+
+            self.__dict__["_train_graphs"] = TrainGraphs()
+        return self.__dict__["_train_graphs"]
+
+    @train_graphs.setter
+    def train_graphs(self, graphs):
+        self.__dict__["_train_graphs"] = graphs
+
+    @property
+    def loss_graphs(self):
+        """The captured held-out losses of this model (training/train_graph.py::heldout_loss)."""
+        if "_loss_graphs" not in self.__dict__:
+            from kpdiff_tpu_torch.training.train_graph import TrainGraphs
+
+            self.__dict__["_loss_graphs"] = TrainGraphs()
+        return self.__dict__["_loss_graphs"]
+
+    @loss_graphs.setter
+    def loss_graphs(self, graphs):
+        self.__dict__["_loss_graphs"] = graphs
 
     @torch.no_grad()
     def sample(self, cpx: PaddedComplex, kk_edges, init_com: Optional[torch.Tensor] = None,
@@ -581,6 +606,13 @@ class KeypointDiffusion(nn.Module):
             return torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
         return kp_shard.local_batch(torch.randn(kp_shard.draw_shape(shape), generator=generator, device=dev,
                                                 dtype=torch.float32))
+
+
+def device_t_eps(t_eps, device):
+    """Injected (t_int, eps_x, eps_h), arrays or tensors, as tensors on `device` (None stays None)."""
+    if t_eps is None:
+        return None
+    return tuple(torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a, device=device) for a in t_eps)
 
 
 def _ot_kwargs(loss_cfg: Dict[str, Any]) -> Dict[str, Any]:

@@ -238,7 +238,9 @@ class EGNNDynamics(nn.Module):
                 h["kp"], x["kp"] = kp_h0, kp_x0
             conv = getattr(self, f"conv{i}")
             if self.remat and torch.is_grad_enabled():
-                h, x = checkpoint(conv, h, x, edges, z, masks, sh, use_reentrant=False)
+                # the conv draws nothing: no RNG state to save (torch's saving reads the default
+                # generator, which a CUDA graph capture does not allow)
+                h, x = checkpoint(conv, h, x, edges, z, masks, sh, use_reentrant=False, preserve_rng_state=False)
             else:
                 h, x = conv(h, x, edges, z, masks, sh)
 

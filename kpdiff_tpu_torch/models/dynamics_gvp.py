@@ -292,7 +292,9 @@ class GVPDynamics(nn.Module):
             conv = getattr(self, f"conv{i}")
             drop = conv.dropout_masks(node_data, generator, kp_shard) if dropout else None
             if self.remat and torch.is_grad_enabled():
-                node_data = checkpoint(conv, node_data, adj, masks, drop, kp_shard, use_reentrant=False)
+                # the masks are drawn above: the conv draws nothing, so no RNG state is saved
+                node_data = checkpoint(conv, node_data, adj, masks, drop, kp_shard, use_reentrant=False,
+                                       preserve_rng_state=False)
             else:
                 node_data = conv(node_data, adj, masks, drop, kp_shard)
 

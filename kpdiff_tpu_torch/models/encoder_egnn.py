@@ -151,7 +151,7 @@ class EGNNReceptorEncoder(nn.Module):
             n_rec = torch.clamp(torch.sum(mask, dim=1), min=1).float()
             z = (n_edges / n_rec)[:, None, None]
         else:
-            z = torch.tensor(float(self.message_norm), device=h.device)
+            z = torch.full((), float(self.message_norm), device=h.device)
 
         x = x0
         for i in range(self.n_convs):

@@ -57,6 +57,9 @@ class NoiseSchedule:
 
     timesteps: int
     gamma_table: np.ndarray  # (timesteps + 1,) float32
+    # the table on each device it was read on, copied there once: a step captured into a CUDA graph must not
+    # copy from host memory
+    _on_device: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     @staticmethod
     def create(noise_schedule: str = "polynomial_2", timesteps: int = 1000,
@@ -76,7 +79,9 @@ class NoiseSchedule:
 
     def gamma(self, t: torch.Tensor) -> torch.Tensor:
         """gamma at continuous t in [0, 1]; indexes the table at round(t*T)."""
-        table = torch.as_tensor(self.gamma_table, device=t.device)
+        table = self._on_device.get(t.device)
+        if table is None:
+            table = self._on_device[t.device] = torch.as_tensor(self.gamma_table, device=t.device)
         return table[torch.round(t * self.timesteps).long()]
 
 

@@ -25,7 +25,7 @@ def _spread_bits_10(v: torch.Tensor) -> torch.Tensor:
 
 def morton_code(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """30-bit Morton codes (int32) of (B, N, 3) points; masked points get 2**30."""
-    inf = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
+    inf = torch.full((), float("inf"), dtype=x.dtype, device=x.device)
     m = mask[..., None]
     lo = torch.amin(torch.where(m, x, inf), dim=1, keepdim=True)
     hi = torch.amax(torch.where(m, x, -inf), dim=1, keepdim=True)
@@ -72,9 +72,8 @@ def block_radius_adjacency(x: torch.Tensor, mask: torch.Tensor, radius: float, t
     mt = mask.reshape(b, nt, tile)
     d2 = torch.sum(torch.square(xw[:, :, :, None, :] - xt[:, :, None, :, :]), dim=-1)
     valid = mw[:, :, :, None] & mt[:, :, None, :]
-    eye = torch.zeros((w, tile), dtype=torch.bool, device=x.device)
-    j = torch.arange(tile, device=x.device)
-    eye[j + tile, j] = True
+    # window row tile + j is destination j itself
+    eye = torch.arange(w, device=x.device)[:, None] == torch.arange(tile, device=x.device)[None, :] + tile
     return (d2 < float(radius) ** 2) & valid & ~eye[None, None]
 
 

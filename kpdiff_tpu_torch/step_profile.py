@@ -2,7 +2,7 @@
 
     python3 -m kpdiff_tpu_torch.step_profile [--config YML] [--buckets 16 32 48] [--params NPZ] [--own_kk]
                                              [--out FILE]
-    python3 -m kpdiff_tpu_torch.step_profile --train [--config YML] [--params NPZ] [--out FILE]
+    python3 -m kpdiff_tpu_torch.step_profile --train [--graph] [--config YML] [--params NPZ] [--out FILE]
 
 Builds --config (default configs/egnn_40kp.yml; any family of configs/) at
 full width and depth (seeded random weights unless --params names a keystr
@@ -27,11 +27,16 @@ the share a hand-written kernel for it could act on. --out also writes the
 tables to a file.
 
 --train profiles training of --config instead (the flagship by default): molgen's 256-complex split at
-full padding, the config's batch size, the port's train step; 3 warm-up steps, then 6
-steps under torch.profiler (wall and device ms per step, busy share, top
-kernels), then the dense edge's share: every EGNNEdgeDense call of one step
-(ll and kk, 12; the plain version under autograd) replayed forward and
-backward on its own inputs, timed with CUDA events.
+full padding, the config's batch size, the port's train step, eagerly
+(cuda_graph=False: launch by launch, as the per-module replay needs); 3
+warm-up steps, then 6 steps under torch.profiler (wall and device ms per
+step, busy share, top kernels), then the dense edge's share: every
+EGNNEdgeDense call of one step (ll and kk, 12; the plain version under
+autograd) replayed forward and backward on its own inputs, timed with CUDA
+events. --graph adds the same 6 steps replayed from the step's captured CUDA
+graphs (the trainer's default path, training/train_graph.py), after 3
+steps that capture them: the same table, each capture's seconds and pool
+bytes, and the two paths side by side.
 """
 from __future__ import annotations
 
@@ -101,20 +106,32 @@ def train_profile(args):
                           lig_buckets=buckets, kp_vec_dim=model.kp_vec_dim)
     batches = [b.to(dev) for _ in range(3) for b in loader.epoch()]  # 9 batches, buckets 24 and 32
     state = trainer.init_train_state(model, tcfg)
-    step_fn = trainer.make_train_step(tcfg, len(train_ds) // tcfg.batch_size)
+    step_fn = trainer.make_train_step(tcfg, len(train_ds) // tcfg.batch_size, cuda_graph=False)
     gen = torch.Generator(device=dev).manual_seed(0)
-    for b in batches[:3]:
-        step_fn(state, b, generator=gen)
-    torch.cuda.synchronize()
     report = [f"{torch.cuda.get_device_name(0)}; {args.config} training; weights {args.params or 'random seed 0'}; "
               f"batch {tcfg.batch_size}; buckets of the profiled steps {[int(b.lig_x.shape[1]) for b in batches[3:]]}"]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for b in batches[3:]:
-            step_fn(state, b, generator=gen)
+    paths = {"eager": step_fn}
+    if args.graph:
+        paths["graph"] = trainer.make_train_step(tcfg, len(train_ds) // tcfg.batch_size, cuda_graph=True)
+    summary = {}
+    for label, fn in paths.items():
+        for b in batches[:3]:  # warm-up; for the graph, the captures of the buckets
+            fn(state, b, generator=gen)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    report += _kernel_table(prof, len(batches) - 3, wall)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for b in batches[3:]:
+                fn(state, b, generator=gen)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        table = _kernel_table(prof, len(batches) - 3, wall)
+        summary[label] = table[0]
+        report += [f"{label} steps:"] + table
+    if args.graph:
+        report += [f"graph capture of bucket {c['inputs']['in.batch.lig_x'][1]}: {c['capture_s']:.3f} s, graph pool "
+                   f"{c['pool_bytes']} bytes" for c in model.train_graphs.captures]
+        report += [f"{label}: {line}" for label, line in summary.items()]
+    step_fn = paths["eager"]
 
     # the dense edges of one step, replayed forward and backward on their own inputs
     calls = []
@@ -229,6 +246,8 @@ def main():
     ap.add_argument("--own_kk", action="store_true",
                     help="sample on the encoder's own kk (dense or blocks) instead of compact_kk's neighbor list")
     ap.add_argument("--train", action="store_true", help="profile training steps of --config instead of sampling")
+    ap.add_argument("--graph", action="store_true",
+                    help="with --train: also profile the steps replayed from their captured CUDA graphs")
     ap.add_argument("--out", default=None, help="also write the report to this path")
     args = ap.parse_args()
     if args.train:
