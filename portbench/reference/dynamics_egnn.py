@@ -1,0 +1,250 @@
+"""EGNN noise-prediction dynamics (kpdiff_tpu/models/dynamics_egnn.py:70-365).
+
+Ligand-ligand edges are a dense grid, the radius graph or, with ll_k > 0,
+each ligand atom's ll_k nearest ligand atoms. Keypoint-ligand edges are,
+with kl_k > 0, a kNN pair list (each keypoint's kl_k nearest ligand atoms)
+and, with kl_k == 0, the dense radius grid (B, K, Nl) on the kl cutoff, lk
+its transpose. All are rebuilt from current positions on every call; the kk
+edge structure comes in from the encoder, dense (B, K, K), a neighbor list
+(idx, valid) or blocks (below). The timestep is appended as a feature
+channel, so the working width is hidden_nf + 1. The kk structure may also
+be the banded block layout {'block': adj (B, nt, 3 * tile, tile)} over
+spatially sorted keypoints (kk_layout 'block', the all-atom configs): each
+tile of `tile` destinations against the 3 * tile sources of its window,
+reshaped to a dense (B * nt, 3 * tile, tile) grid.
+
+Every dense edge grid (ll, kl and lk while dense, kk while dense, and the
+block windows) goes through the CUDA edge kernel under no_grad, as the JAX
+package's sampler does with `dynamics.use_pallas_sampling` for ll, kl, lk
+and dense kk; the JAX package's block branch never takes its Pallas kernel,
+the port's does. The kl and lk modules are named `edge_kl` and `edge_lk`
+under either layout, with the same parameters, so one archive loads under
+both. While autograd records they take the kernel's plain version. `remat`
+recomputes each conv layer in the backward pass (torch.utils.checkpoint),
+storing only the layer boundaries.
+
+With `kp_shard` (parallel/kp_shard.py::ShardContext) the keypoint tensors
+are this rank's rows: kl messages into the replicated ligand are partial
+over the rank's keypoint sources and summed over the 'model' group, kk
+takes every keypoint as a source (gathered h and x; a dense kk arrives as
+(B, K, K/n), a neighbor list indexes the global rows, the block layout
+runs on the gathered keypoints and keeps its rows), lk and the keypoint
+update stay local, and the message_norm 0 counts are summed over the group.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from portbench.reference.egnn import EGNNEdgeDense, EGNNEdgeKNNPairs, EGNNEdgeNbrList, NodeUpdate
+from portbench.reference.nn import MLP
+from portbench.reference.neighbors import dense_knn_adjacency, dense_radius_adjacency, knn_indices
+from portbench.reference.spatial import block_windows
+
+
+class EGNNConvLayer(nn.Module):
+    """One heterograph EGNN layer: dense ll, kl as kNN pairs or a dense grid
+    (dense_kl), and lk, kk with update_kp_feat."""
+
+    def __init__(self, hidden_size: int, gen: torch.Generator, use_tanh: bool, update_kp_feat: bool,
+                 norm: bool, dtype: str = "float32", dense_kl: bool = False):
+        super().__init__()
+        h = hidden_size
+        self.update_kp_feat = update_kp_feat
+        self.dense_kl = dense_kl
+        dense = dict(use_tanh=use_tanh, coords_range=10.0, dtype=dtype)
+
+        def kl_module(anchor_is_src):
+            if dense_kl:
+                return EGNNEdgeDense(h, h, gen, **dense)
+            return EGNNEdgeKNNPairs(h, h, gen, anchor_is_src=anchor_is_src, use_tanh=use_tanh, dtype=dtype)
+
+        self.edge_ll = EGNNEdgeDense(h, h, gen, **dense)
+        self.edge_kl = kl_module(True)
+        if update_kp_feat:
+            self.edge_lk = kl_module(False)
+            # kk dispatches on its structure: a dense adjacency goes to edge_kk,
+            # a neighbor list to kk_nbr, which shares edge_kk's parameters
+            self.edge_kk = EGNNEdgeDense(h, h, gen, **dense)
+            self.kk_nbr = EGNNEdgeNbrList(h, h, gen, use_tanh=use_tanh, dtype=dtype)
+            for name, p in self.edge_kk.named_parameters():
+                setattr(self.kk_nbr, name, p)
+        self.update_lig = NodeUpdate(h, h, h, gen, norm=norm, dtype=dtype)
+        if update_kp_feat:
+            self.update_kp = NodeUpdate(h, h, h, gen, norm=norm, dtype=dtype)
+
+    def _block_kk(self, h, x, adj):
+        """kk over the banded block layout: windows of 3 * tile sources to
+        tiles of `tile` destinations as one dense (B * nt, 3 * tile, tile) grid."""
+        b, nt, w, tile = adj.shape
+        f = h.shape[-1]
+        hw = block_windows(h, tile).reshape(b * nt, w, f)
+        xw = block_windows(x, tile).reshape(b * nt, w, 3)
+        dh, dx = self.edge_kk(hw, h.reshape(b * nt, tile, f), xw, x.reshape(b * nt, tile, 3),
+                              adj.reshape(b * nt, w, tile))
+        return dh.reshape(b, nt * tile, f), dx.reshape(b, nt * tile, 3)
+
+    def forward(self, h, x, edges, z, masks, kp_shard=None):
+        agg_h = {"lig": 0.0, "kp": 0.0}
+        agg_x = {"lig": 0.0, "kp": 0.0}
+        sh = kp_shard
+
+        def add(dst, out):
+            agg_h[dst] = agg_h[dst] + out[0]
+            agg_x[dst] = agg_x[dst] + out[1]
+
+        add("lig", self.edge_ll(h["lig"], h["lig"], x["lig"], x["lig"], edges["ll"]))
+        # the replicated ligand as the keypoint edges of this rank see it
+        h_lig, x_lig = (h["lig"], x["lig"]) if sh is None else sh.enter(h["lig"], x["lig"])
+        if self.dense_kl:
+            kl = self.edge_kl(h["kp"], h_lig, x["kp"], x_lig, edges["kl"])
+        else:
+            idx, valid = edges["kl_pairs"]
+            kl = self.edge_kl(h["kp"], h_lig, x["kp"], x_lig, idx, valid)
+        add("lig", kl if sh is None else sh.reduce(*kl))
+        if self.update_kp_feat:
+            if self.dense_kl:
+                add("kp", self.edge_lk(h_lig, h["kp"], x_lig, x["kp"], edges["lk"]))
+            else:
+                add("kp", self.edge_lk(h["kp"], h_lig, x["kp"], x_lig, idx, valid))
+            kk = edges["kk"]
+            h_src, x_src = (h["kp"], x["kp"]) if sh is None else sh.gather(h["kp"], x["kp"])
+            if isinstance(kk, dict):
+                out = self._block_kk(h_src, x_src, kk["block"])
+                if sh is not None:
+                    lo, hi = sh.bounds(h_src.shape[1])
+                    out = (out[0][:, lo:hi], out[1][:, lo:hi])
+                add("kp", out)
+            elif isinstance(kk, tuple):
+                idx, valid = kk
+                add("kp", self.kk_nbr(h_src, h["kp"], x_src, x["kp"], idx, valid))
+            else:
+                add("kp", self.edge_kk(h_src, h["kp"], x_src, x["kp"], kk))
+
+        updated = ["lig", "kp"] if self.update_kp_feat else ["lig"]
+        h_out, x_out = dict(h), dict(x)
+        for ntype in updated:
+            hn = agg_h[ntype] / z[ntype]
+            xn = agg_x[ntype] / z[ntype]
+            new_h = getattr(self, f"update_{ntype}")(h[ntype], hn)
+            m = masks[ntype][..., None].to(new_h.dtype)
+            h_out[ntype] = new_h * m
+            x_out[ntype] = (x[ntype] + xn) * m
+        return h_out, x_out
+
+
+class EGNNDynamics(nn.Module):
+    """Encode features, append t, run n_layers hetero EGNN layers, decode
+    noise predictions (kpdiff_tpu/models/dynamics_egnn.py:194-365)."""
+
+    def __init__(self, atom_nf: int, rec_nf: int, gen: torch.Generator, n_layers: int = 6,
+                 hidden_nf: int = 256, use_tanh: bool = False, message_norm: float = 1.0,
+                 update_kp_feat: bool = False, norm: bool = False, ll_k: int = 0, kl_k: int = 0,
+                 ll_cutoff: float = 9.0, kl_cutoff: float = 8.0, compute_dtype: str = "float32",
+                 z_semantics: str = "intent", remat: bool = False):
+        super().__init__()
+        self.n_layers = n_layers
+        self.message_norm = message_norm
+        self.update_kp_feat = update_kp_feat
+        self.ll_k, self.kl_k = ll_k, kl_k
+        self.ll_cutoff, self.kl_cutoff = ll_cutoff, kl_cutoff
+        self.z_semantics = z_semantics
+        self.remat = remat
+        self.lig_encoder = MLP(atom_nf, [64, hidden_nf], ["silu", "silu"], gen)
+        self.kp_encoder = (MLP(rec_nf, [2 * rec_nf, hidden_nf], ["silu", "silu"], gen)
+                           if rec_nf != hidden_nf else None)
+        for i in range(n_layers):
+            self.add_module(f"conv{i}", EGNNConvLayer(
+                hidden_nf + 1, gen, use_tanh=use_tanh, update_kp_feat=update_kp_feat, norm=norm,
+                dtype=compute_dtype, dense_kl=kl_k <= 0))
+        self.lig_decoder = MLP(hidden_nf, [2 * atom_nf, atom_nf], ["silu", ""], gen)
+
+    def kp_row_modules(self):
+        """The modules that run on a kp-sharded rank's keypoint rows only: their
+        parameter gradients are partial over the 'model' group."""
+        mods = [] if self.kp_encoder is None else [self.kp_encoder]
+        for i in range(self.n_layers):
+            conv = getattr(self, f"conv{i}")
+            mods += [getattr(conv, n) for n in ("edge_kl", "edge_lk", "edge_kk", "update_kp") if hasattr(conv, n)]
+        return mods
+
+    def forward(self, lig_x, lig_h, lig_mask, kp_x, kp_h, kp_mask, t, kk_edges=None, kp_shard=None):
+        """kp_shard: a ShardContext when the keypoint tensors are this rank's rows."""
+        sh = kp_shard
+        b, nl = lig_mask.shape
+        k = kp_mask.shape[1]
+        lig_feat = self.lig_encoder(lig_h)
+        kp_feat = self.kp_encoder(kp_h) if self.kp_encoder is not None else kp_h
+
+        t_col = t.to(lig_feat.dtype)[:, None, None]
+        lig_feat = torch.cat([lig_feat, t_col.expand(b, nl, 1)], dim=-1) * lig_mask[..., None]
+        kp_feat = torch.cat([kp_feat, t_col.expand(b, k, 1).to(kp_feat.dtype)], dim=-1) * kp_mask[..., None]
+
+        if self.ll_k > 0:
+            ll = dense_knn_adjacency(lig_x, lig_mask, lig_x, lig_mask, self.ll_k, per="dst", exclude_self=True)
+        else:
+            ll = dense_radius_adjacency(lig_x, lig_mask, lig_x, lig_mask, self.ll_cutoff, exclude_self=True)
+        edges: Dict[str, object] = {"ll": ll}
+        if self.kl_k > 0:
+            # per-keypoint k nearest ligand atoms as an explicit pair list
+            kl_idx, _dist, kl_valid = knn_indices(lig_x, lig_mask, kp_x, kp_mask, self.kl_k)
+            kl_valid = kl_valid & kp_mask[:, :, None]
+            edges["kl_pairs"] = (kl_idx, kl_valid)
+            e_kl = torch.sum(kl_valid, dim=(1, 2))
+        else:
+            edges["kl"] = dense_radius_adjacency(kp_x, kp_mask, lig_x, lig_mask, self.kl_cutoff)
+            edges["lk"] = edges["kl"].transpose(1, 2)
+            e_kl = torch.sum(edges["kl"], dim=(1, 2))
+        if self.update_kp_feat:
+            if kk_edges is None:
+                raise ValueError("kk_edges required when update_kp_feat=True")
+            edges["kk"] = kk_edges
+
+        z = {}
+        if self.message_norm == 0 and self.z_semantics == "executed":
+            z["lig"] = z["kp"] = 1.0
+        elif self.message_norm == 0:
+            if sh is not None:
+                e_kl = sh.count(e_kl)
+            n_lig = torch.clamp(torch.sum(lig_mask, dim=1), min=1)
+            e_lig = torch.sum(ll, dim=(1, 2)) + e_kl
+            z["lig"] = (e_lig / n_lig + 1.0)[:, None, None]
+            if self.update_kp_feat:
+                n_kp = torch.sum(kp_mask, dim=1)
+                kk = edges["kk"]
+                if isinstance(kk, dict):  # whole on every rank
+                    e_kk = torch.sum(kk["block"], dim=(1, 2, 3))
+                else:
+                    e_kk = torch.sum(kk[1] if isinstance(kk, tuple) else kk, dim=(1, 2))
+                if sh is not None:
+                    n_kp = sh.count(n_kp)
+                    e_kk = e_kk if isinstance(kk, dict) else sh.count(e_kk)
+                n_kp = torch.clamp(n_kp, min=1)
+                z["kp"] = ((e_kl + e_kk) / n_kp + 1.0)[:, None, None]
+            else:
+                z["kp"] = 1.0
+        else:
+            z["lig"] = z["kp"] = float(self.message_norm)
+
+        h = {"lig": lig_feat, "kp": kp_feat}
+        x = {"lig": lig_x, "kp": kp_x}
+        masks = {"lig": lig_mask, "kp": kp_mask}
+        kp_h0, kp_x0 = kp_feat, kp_x
+        for i in range(self.n_layers):
+            if not self.update_kp_feat:
+                h["kp"], x["kp"] = kp_h0, kp_x0
+            conv = getattr(self, f"conv{i}")
+            if self.remat and torch.is_grad_enabled():
+                # the conv draws nothing: no RNG state to save (torch's saving reads the default
+                # generator, which a CUDA graph capture does not allow)
+                h, x = checkpoint(conv, h, x, edges, z, masks, sh, use_reentrant=False, preserve_rng_state=False)
+            else:
+                h, x = conv(h, x, edges, z, masks, sh)
+
+        eps_h = self.lig_decoder(h["lig"][..., :-1])
+        eps_x = x["lig"] - lig_x
+        m = lig_mask[..., None]
+        return eps_h * m, eps_x * m
