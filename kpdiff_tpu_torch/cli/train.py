@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import ast
+import contextlib
 import time
 import uuid
 from pathlib import Path
@@ -52,7 +53,8 @@ def parse_args(argv=None):
     p.add_argument("--mp_devices", type=int, default=1,
                    help="devices that split the keypoints (dp x mp); must divide --n_devices")
     p.add_argument("--profile_dir", type=str, default=None,
-                   help="write a torch.profiler trace of steps 10-15 to this dir")
+                   help="write a torch.profiler Chrome trace of steps 10-15 (the program's kpdiff.* spans "
+                        "beside the device's kernels) to this dir")
     p.add_argument("--set", action="append", default=[], metavar="SECTION.KEY=VALUE",
                    help="override any nested config key, e.g. --set dynamics.n_layers=4")
     return p.parse_args(argv)
@@ -142,6 +144,7 @@ def _train(args, config, run_dir):
     from kpdiff_tpu_torch.parallel import distributed as pdist
     from kpdiff_tpu_torch.parallel.mesh import make_mesh, replicate_params, shard_batch
     from kpdiff_tpu_torch.training.scheduler import is_restart_boundary
+    from kpdiff_tpu_torch.utils import profiling
     from kpdiff_tpu_torch.training.trainer import (MetricsLog, checkpoint_steps, init_train_state, load_checkpoint,
                                                    make_train_step, save_checkpoint)
 
@@ -226,7 +229,7 @@ def _train(args, config, run_dir):
     prev_epoch = 0.0
     nonfinite_streak = 0
     dropped_warned = False
-    profiler = None
+    trace = contextlib.ExitStack()  # --profile_dir: utils/profiling.py::device_trace over steps 10-15
 
     n_params = sum(p.numel() for p in model.parameters())
     if writer:
@@ -244,12 +247,9 @@ def _train(args, config, run_dir):
                 done = True
                 break
             if args.profile_dir and writer and state.step == 10:
-                profiler = _start_profiler(dev)
-            if profiler is not None and state.step == 15:
-                profiler.stop()
-                Path(args.profile_dir).mkdir(parents=True, exist_ok=True)
-                profiler.export_chrome_trace(str(Path(args.profile_dir) / "trace.json"))
-                profiler = None
+                trace.enter_context(profiling.device_trace(args.profile_dir, cuda=dev.type == "cuda"))
+            if args.profile_dir and writer and state.step == 15:
+                trace.close()
                 print(f"profiler trace written to {args.profile_dir}", flush=True)
 
             # this rank's rows of each micro-batch
@@ -309,8 +309,7 @@ def _train(args, config, run_dir):
         if not done and n_batches == 0:  # an epoch without a batch would loop forever
             raise ValueError(f"the training split gives no batch of {batch_size}: {len(train_ds)} complexes, "
                              f"{train_loader.n_dropped} beyond the padding capacity")
-    if profiler is not None:
-        profiler.stop()
+    trace.close()
 
     if not writer:
         return run_dir, state
@@ -351,15 +350,6 @@ def train_config_from(config):
             rec_enc_weight_decay_scale=sched.get("rec_enc_weight_decay_scale", 1),
         ),
     )
-
-
-def _start_profiler(dev):
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-    prof = profile(activities=acts)
-    prof.start()
-    return prof
 
 
 def evaluate(model, test_loader, device, generator=None, test_epochs=1, cuda_graph=None):

@@ -1134,9 +1134,60 @@ cudaError_t launch_v5(K kernel, const Params& p, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// The tracer's device timer (kpdiff_tpu_torch/utils/profiling.py): one thread
+// reads %globaltimer. buf: [previous stamp's time, replays, ns per slot]. A
+// stamp with slot >= 0 adds the time since the previous stamp to that slot; the
+// replay's first stamp (slot < 0) counts the replay. The stamps of one graph
+// run one after another on its stream, so plain adds suffice.
+__global__ void kpdiff_device_stamp_kernel(unsigned long long* buf, int slot) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  if (slot < 0)
+    buf[1] += 1;
+  else
+    buf[2 + slot] += now - buf[0];
+  buf[0] = now;
+}
+
 }  // namespace
 
 extern "C" {
+
+int kpdiff_device_stamp(unsigned long long* buf, int slot, void* stream) {
+  kpdiff_device_stamp_kernel<<<1, 1, 0, reinterpret_cast<cudaStream_t>(stream)>>>(buf, slot);
+  return int(cudaGetLastError());
+}
+
+// Kernel nodes and all nodes of the graph that `stream` is capturing, read
+// from the graph under construction (in relaxed capture mode, so that the
+// queries cannot invalidate a capture in global mode).
+int kpdiff_capture_kernel_nodes(void* stream, long long* kernels, long long* nodes) {
+  cudaStreamCaptureMode mode = cudaStreamCaptureModeRelaxed;
+  cudaError_t e = cudaThreadExchangeStreamCaptureMode(&mode);
+  if (e != cudaSuccess) return int(e);
+  cudaStreamCaptureStatus status;
+  cudaGraph_t graph = nullptr;
+  e = cudaStreamGetCaptureInfo(reinterpret_cast<cudaStream_t>(stream), &status, nullptr, &graph);
+  size_t n = 0;
+  if (e == cudaSuccess && (status != cudaStreamCaptureStatusActive || graph == nullptr)) e = cudaErrorInvalidValue;
+  if (e == cudaSuccess) e = cudaGraphGetNodes(graph, nullptr, &n);
+  long long k = 0;
+  if (e == cudaSuccess && n > 0) {
+    cudaGraphNode_t* all = new cudaGraphNode_t[n];
+    e = cudaGraphGetNodes(graph, all, &n);
+    for (size_t i = 0; e == cudaSuccess && i < n; ++i) {
+      cudaGraphNodeType type;
+      e = cudaGraphNodeGetType(all[i], &type);
+      k += e == cudaSuccess && type == cudaGraphNodeTypeKernel;
+    }
+    delete[] all;
+  }
+  cudaError_t restore = cudaThreadExchangeStreamCaptureMode(&mode);
+  if (e == cudaSuccess) e = restore;
+  *kernels = k;
+  *nodes = (long long)n;
+  return int(e);
+}
 
 size_t egnn_edge_dense_smem_bytes(int H, int bf16) { return smem_bytes(H, bf16 != 0); }
 

@@ -1,10 +1,14 @@
 """Background-thread batch prefetcher (kpdiff_tpu/data/prefetch.py): host
-padding and collation overlap the device step through a bounded queue."""
+padding and collation overlap the device step through a bounded queue.
+The consumer's wait on the queue is the tracer's span data.wait, and each
+batch handed over counts in data.batches (utils/profiling.py)."""
 from __future__ import annotations
 
 import queue
 import threading
 from typing import Iterable, Iterator
+
+from kpdiff_tpu_torch.utils import profiling
 
 
 class Prefetcher:
@@ -31,11 +35,13 @@ class Prefetcher:
 
     def __iter__(self) -> Iterator:
         while True:
-            item = self._q.get()
+            with profiling.span("data.wait"):
+                item = self._q.get()
             if item is self._DONE:
                 if self._err is not None:
                     raise self._err
                 return
+            profiling.count("data.batches")
             yield item
 
 

@@ -34,18 +34,25 @@ There is no fallback: a failure to capture or replay raises.
 Launch counting: the edge kernel's wrapper counts a call made while a
 stream captures in `egnn_edge.captured`, not in `launches`; a graph keeps
 the number it captured and each replay adds it to `egnn_edge.launches`.
+
+Tracing (utils/profiling.py): every CUDA capture is armed, so that the
+step's `device_mark`s and the begin and end stamps the runner adds time its
+edge sets on every replay (`ChainGraph.timers`); the capture counts the
+graph's kernel nodes. Host spans: "<name>.capture" around each capture and
+"<name>.replays" around a chain's replay loop (`name`: "chain" here; the
+train and held-out loss runners take "train" and "loss").
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
-import time
 import types
 from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from kpdiff_tpu_torch.ops.cuda import egnn_edge
+from kpdiff_tpu_torch.utils import profiling
 
 STATE = ("lig_x", "lig_h", "kp_x")
 
@@ -139,6 +146,7 @@ class ChainGraph:
     graph: Any = None
     launches: int = 0  # edge-kernel launches a replay makes (captured calls)
     replays: int = 0
+    timers: Optional[profiling.GraphTimers] = None  # the device timers of an armed capture
 
     def replay(self):
         self.graph.replay()
@@ -150,9 +158,11 @@ class ChainGraphs:
     """A model's captured reverse steps, cached by shape (see the module
     docstring). `capture` turns (step, static, generator, pool, stream) into
     an object with `replay()`: `cuda_capture` (None, the default) or
-    `host_capture` (the CPU stand-in of the tests)."""
+    `host_capture` (the CPU stand-in of the tests). `name` is the runner's
+    kind in the tracer's spans and timers."""
 
-    def __init__(self, max_graphs: int = 16, capture: Optional[Callable] = None):
+    def __init__(self, max_graphs: int = 16, capture: Optional[Callable] = None, name: str = "chain"):
+        self.name = name
         self.max_graphs = max_graphs
         self._capture = capture or cuda_capture
         self._entries: "collections.OrderedDict[tuple, ChainGraph]" = collections.OrderedDict()
@@ -160,7 +170,8 @@ class ChainGraphs:
         self._pool = None
         self._stream = None
         self.last: Optional[ChainGraph] = None  # the entry of the newest run
-        self.captures = []  # one record per capture: input shapes, seconds, pool bytes, launches a replay
+        self.captures = []  # one record per capture: input shapes, seconds, pool bytes, launches, kernels a replay
+        profiling.TRACER.register(self)
 
     def __len__(self):
         return len(self._entries)
@@ -205,10 +216,11 @@ class ChainGraphs:
                 after_step(0, entry.static)
             self._capture_step(entry, step)
             first = 1
-        for i in range(first, n_steps):
-            entry.replay()
-            if after_step is not None:
-                after_step(i, entry.static)
+        with profiling.span(f"{self.name}.replays"):
+            for i in range(first, n_steps):
+                entry.replay()
+                if after_step is not None:
+                    after_step(i, entry.static)
         return {k: entry.static[k].clone() for k in STATE}
 
     def _warm_up(self, entry, step):
@@ -227,15 +239,34 @@ class ChainGraphs:
 
     def _capture_step(self, entry, step):
         before, pool_before = egnn_edge.captured, self.pool_bytes()
-        t0 = time.perf_counter()
-        entry.graph = self._capture(step, entry.static, entry.generator, self._pool, self._stream)
-        capture_s = time.perf_counter() - t0
+        with profiling.span(f"{self.name}.capture") as sp:
+            if self._capture is cuda_capture:
+                entry.graph, entry.timers = self._timed_capture(entry, step)
+            else:
+                entry.graph = self._capture(step, entry.static, entry.generator, self._pool, self._stream)
         entry.launches = egnn_edge.captured - before
         pool = self.pool_bytes()
         self.captures.append(dict(inputs=tree_shapes(entry.static),
-                                  capture_s=capture_s, pool_bytes=pool,
+                                  capture_s=sp.seconds, pool_bytes=pool,
                                   pool_growth=None if pool is None or pool_before is None else pool - pool_before,
-                                  launches_per_replay=entry.launches))
+                                  launches_per_replay=entry.launches,
+                                  kernels_per_replay=None if entry.timers is None else entry.timers.kernels))
+
+    def _timed_capture(self, entry, step):
+        """cuda_capture of the step between the tracer's begin and end
+        stamps, with its device_marks armed; (graph, its GraphTimers)."""
+        stream = self._stream.cuda_stream
+
+        with profiling.armed(self.name, _device(entry.static), stream) as armed:
+            def timed(static):
+                armed.begin()
+                step(static)
+                armed.end()
+                kernels, _ = egnn_edge.capture_kernel_nodes(stream)
+                armed.timers.kernels = kernels - armed.timers.stamps
+
+            graph = cuda_capture(timed, entry.static, entry.generator, self._pool, self._stream)
+        return graph, armed.timers
 
     def pool_bytes(self) -> Optional[int]:
         """Bytes of the segments of the graphs' shared pool (the caching

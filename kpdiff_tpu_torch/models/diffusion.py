@@ -64,6 +64,7 @@ from kpdiff_tpu_torch.ops.schedule import (
     sigma_and_alpha_t_given_s,
     sigma_from_gamma,
 )
+from kpdiff_tpu_torch.utils.profiling import device_mark
 
 
 @dataclasses.dataclass(frozen=True)
@@ -251,6 +252,7 @@ class KeypointDiffusion(nn.Module):
         sh = kp_shard
         den = (lambda c: torch.clamp(c, min=1.0)) if sh is None else sh.mean_den
         cpx = cpx.replace(lig_h=cpx.lig_h / cfg.lig_feat_norm_constant)
+        device_mark("encoder")  # the device timers' segments (utils/profiling.py): encoder, ot, then the dynamics'
         cpx, kk = self.encode(cpx, dropout=True, generator=generator)
         losses: Dict[str, torch.Tensor] = {"rec_encoder": self._rec_encoder_loss(cpx, sh)}
 
@@ -327,8 +329,10 @@ class KeypointDiffusion(nn.Module):
         if self.rec_loss_type == "none":
             return torch.zeros((), dtype=cpx.rec_x.dtype, device=cpx.device)
         pts, pts_mask = (cpx.ip_x, cpx.ip_mask) if self.rec_loss_use_ip else (cpx.rec_x, cpx.rec_mask)
-        return ot_loss(cpx.kp_x, cpx.kp_mask, pts, pts_mask, **_ot_kwargs(self.rec_loss_kwargs),
+        kp_x, = device_mark("ot", cpx.kp_x)
+        loss = ot_loss(kp_x, cpx.kp_mask, pts, pts_mask, **_ot_kwargs(self.rec_loss_kwargs),
                        den=None if kp_shard is None else kp_shard.mean_den)
+        return device_mark("rest", loss)[0]
 
     def _rl_hinge(self, cpx, z_x, eps_x_pred, gamma_t, kp_x, init_kp_com):
         """Receptor-ligand clash hinge on the one-shot denoised ligand, moved
@@ -383,7 +387,7 @@ class KeypointDiffusion(nn.Module):
         if "_train_graphs" not in self.__dict__:
             from kpdiff_tpu_torch.training.train_graph import TrainGraphs
 
-            self.__dict__["_train_graphs"] = TrainGraphs()
+            self.__dict__["_train_graphs"] = TrainGraphs(name="train")
         return self.__dict__["_train_graphs"]
 
     @train_graphs.setter
@@ -396,7 +400,7 @@ class KeypointDiffusion(nn.Module):
         if "_loss_graphs" not in self.__dict__:
             from kpdiff_tpu_torch.training.train_graph import TrainGraphs
 
-            self.__dict__["_loss_graphs"] = TrainGraphs()
+            self.__dict__["_loss_graphs"] = TrainGraphs(name="loss")
         return self.__dict__["_loss_graphs"]
 
     @loss_graphs.setter
@@ -499,10 +503,7 @@ class KeypointDiffusion(nn.Module):
         kp_x = (kp_x - com[:, None]) * km
 
         T = cfg.n_timesteps
-        if sample_steps and sample_steps < T:
-            grid = np.unique(np.round(np.linspace(0, T, sample_steps + 1)).astype(np.int32))[::-1].copy()
-        else:
-            grid = np.arange(T, -1, -1)
+        grid = self.chain_grid(sample_steps)
         k = len(grid) - 1
         t_int, s_int = np.zeros(T, np.float32), np.zeros(T, np.float32)
         t_int[:k], s_int[:k] = grid[:-1], grid[1:]
@@ -514,6 +515,15 @@ class KeypointDiffusion(nn.Module):
         if noise is not None:
             st["steps_x"], st["steps_h"] = tensor(noise["steps_x"], 1), tensor(noise["steps_h"], 1)
         return st, k, init_kp_com
+
+    def chain_grid(self, sample_steps: int = 0) -> np.ndarray:
+        """The chain's timesteps from T down to 0: the strided grid of
+        `sample_steps` K < T steps, or every step; a chain of K steps runs
+        len(grid) - 1 reverse steps."""
+        T = self.cfg.n_timesteps
+        if sample_steps and sample_steps < T:
+            return np.unique(np.round(np.linspace(0, T, sample_steps + 1)).astype(np.int32))[::-1].copy()
+        return np.arange(T, -1, -1)
 
     @torch.no_grad()
     def reverse_step(self, dyn, st: Dict[str, Any], eta: float = 1.0, generator: Optional[torch.Generator] = None,

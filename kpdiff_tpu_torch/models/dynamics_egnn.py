@@ -43,6 +43,7 @@ from kpdiff_tpu_torch.models.egnn import EGNNEdgeDense, EGNNEdgeKNNPairs, EGNNEd
 from kpdiff_tpu_torch.models.nn import MLP
 from kpdiff_tpu_torch.ops.neighbors import dense_knn_adjacency, dense_radius_adjacency, knn_indices
 from kpdiff_tpu_torch.ops.spatial import block_windows
+from kpdiff_tpu_torch.utils.profiling import device_mark
 
 
 class EGNNConvLayer(nn.Module):
@@ -96,22 +97,27 @@ class EGNNConvLayer(nn.Module):
             agg_h[dst] = agg_h[dst] + out[0]
             agg_x[dst] = agg_x[dst] + out[1]
 
-        add("lig", self.edge_ll(h["lig"], h["lig"], x["lig"], x["lig"], edges["ll"]))
+        # the device timers' edge sets (utils/profiling.py): each mark opens the
+        # next segment of the step; the tensors passed are the segment's inputs
+        h_ll, x_ll = device_mark("ll", h["lig"], x["lig"])
+        add("lig", self.edge_ll(h_ll, h_ll, x_ll, x_ll, edges["ll"]))
         # the replicated ligand as the keypoint edges of this rank see it
         h_lig, x_lig = (h["lig"], x["lig"]) if sh is None else sh.enter(h["lig"], x["lig"])
+        h_kp, x_kp, h_lig, x_lig = device_mark("kl", h["kp"], x["kp"], h_lig, x_lig)
         if self.dense_kl:
-            kl = self.edge_kl(h["kp"], h_lig, x["kp"], x_lig, edges["kl"])
+            kl = self.edge_kl(h_kp, h_lig, x_kp, x_lig, edges["kl"])
         else:
             idx, valid = edges["kl_pairs"]
-            kl = self.edge_kl(h["kp"], h_lig, x["kp"], x_lig, idx, valid)
+            kl = self.edge_kl(h_kp, h_lig, x_kp, x_lig, idx, valid)
         add("lig", kl if sh is None else sh.reduce(*kl))
         if self.update_kp_feat:
             if self.dense_kl:
-                add("kp", self.edge_lk(h_lig, h["kp"], x_lig, x["kp"], edges["lk"]))
+                add("kp", self.edge_lk(h_lig, h_kp, x_lig, x_kp, edges["lk"]))
             else:
-                add("kp", self.edge_lk(h["kp"], h_lig, x["kp"], x_lig, idx, valid))
+                add("kp", self.edge_lk(h_kp, h_lig, x_kp, x_lig, idx, valid))
             kk = edges["kk"]
             h_src, x_src = (h["kp"], x["kp"]) if sh is None else sh.gather(h["kp"], x["kp"])
+            h_src, x_src, h_kp, x_kp = device_mark("kk", h_src, x_src, h["kp"], x["kp"])
             if isinstance(kk, dict):
                 out = self._block_kk(h_src, x_src, kk["block"])
                 if sh is not None:
@@ -120,9 +126,11 @@ class EGNNConvLayer(nn.Module):
                 add("kp", out)
             elif isinstance(kk, tuple):
                 idx, valid = kk
-                add("kp", self.kk_nbr(h_src, h["kp"], x_src, x["kp"], idx, valid))
+                add("kp", self.kk_nbr(h_src, h_kp, x_src, x_kp, idx, valid))
             else:
-                add("kp", self.edge_kk(h_src, h["kp"], x_src, x["kp"], kk))
+                add("kp", self.edge_kk(h_src, h_kp, x_src, x_kp, kk))
+        agg_h["lig"], agg_h["kp"], agg_x["lig"], agg_x["kp"] = device_mark(
+            "rest", agg_h["lig"], agg_h["kp"], agg_x["lig"], agg_x["kp"])
 
         updated = ["lig", "kp"] if self.update_kp_feat else ["lig"]
         h_out, x_out = dict(h), dict(x)

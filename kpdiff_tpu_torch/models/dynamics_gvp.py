@@ -46,6 +46,9 @@ from kpdiff_tpu_torch.models.gvp import (
 from kpdiff_tpu_torch.models.nn import LayerNorm, TorchLinear
 from kpdiff_tpu_torch.ops.neighbors import dense_knn_adjacency, dense_radius_adjacency, knn_indices
 from kpdiff_tpu_torch.ops.spatial import block_windows
+from kpdiff_tpu_torch.utils.profiling import device_mark
+
+EDGE_SLOT = {"ll": "ll", "kl": "kl", "lk": "kl", "kk": "kk"}  # each edge type's device-timer slot
 
 
 class PairList(NamedTuple):
@@ -147,7 +150,9 @@ class GVPMultiEdgeConv(nn.Module):
                 kp_src = sh.gather(*node_data["kp"])
         for src, ename, dst in self.etypes:
             if sh is None:
-                ds, dv = self._edge(src, ename, dst, node_data, adj[ename])
+                # the device timers' edge sets (utils/profiling.py); the node tensors pass through the mark
+                marked = device_mark(EDGE_SLOT[ename], *node_data["lig"], *node_data["kp"])
+                ds, dv = self._edge(src, ename, dst, {"lig": marked[:3], "kp": marked[3:]}, adj[ename])
             elif src == dst == "lig":
                 ds, dv = self._edge(src, ename, dst, node_data, adj[ename])
             else:
@@ -158,6 +163,9 @@ class GVPMultiEdgeConv(nn.Module):
                     ds, dv = ds[:, lo:hi], dv[:, lo:hi]
             agg_s[dst] = agg_s[dst] + ds
             agg_v[dst] = agg_v[dst] + dv
+        n = len(self.dst_ntypes)
+        marked = device_mark("rest", *(agg_s[t] for t in self.dst_ntypes), *(agg_v[t] for t in self.dst_ntypes))
+        agg_s, agg_v = dict(zip(self.dst_ntypes, marked[:n])), dict(zip(self.dst_ntypes, marked[n:]))
 
         out = dict(node_data)
         for ntype in self.dst_ntypes:

@@ -25,7 +25,9 @@ the kernel to the plain version. `launches` counts kernel launches;
 `captured` counts the calls recorded into a CUDA graph while a stream
 captures (they launch nothing then): the graph runner
 (`models/chain_graph.py`) adds a graph's captured count to `launches` at
-every replay.
+every replay. The same library holds the tracer's device timer
+(`device_stamp`, utils/profiling.py) and the node count of a graph under
+capture (`capture_kernel_nodes`).
 """
 from __future__ import annotations
 
@@ -203,6 +205,11 @@ def _load(phase_clocks: bool = False):
             lib.egnn_edge_dense_main_np.restype = i
             lib.egnn_edge_wgmma_probe.argtypes = [vp, vp, vp, vp]
             lib.egnn_edge_wgmma_probe.restype = i
+            lib.kpdiff_device_stamp.argtypes = [vp, i, vp]
+            lib.kpdiff_device_stamp.restype = i
+            lib.kpdiff_capture_kernel_nodes.argtypes = [vp, ctypes.POINTER(ctypes.c_longlong),
+                                                        ctypes.POINTER(ctypes.c_longlong)]
+            lib.kpdiff_capture_kernel_nodes.restype = i
             lib.egnn_edge_error_string.argtypes = [i]
             lib.egnn_edge_error_string.restype = ctypes.c_char_p
             if lib.egnn_edge_dense_max_h() != MAX_WIDTH or any(
@@ -440,6 +447,31 @@ def wgmma_probe(a: torch.Tensor, main: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"wgmma probe launch failed: {lib.egnn_edge_error_string(err).decode()} ({err})")
     return out
+
+
+def device_stamp(buf: torch.Tensor, slot: int, stream: int):
+    """Queue the tracer's stamp kernel on `stream` (a CUDA stream handle):
+    `buf` is a GraphTimers buffer (int64 [previous stamp, replays, ns per
+    slot] on the card), `slot` the slot credited (< 0: the replay's first
+    stamp). See utils/profiling.py."""
+    if buf.dtype != torch.int64 or buf.device.type != "cuda" or not buf.is_contiguous():
+        raise ValueError("a stamp buffer is a contiguous int64 CUDA tensor")
+    lib = _load()
+    with torch.cuda.device(buf.device):
+        err = lib.kpdiff_device_stamp(buf.data_ptr(), int(slot), stream)
+    if err != 0:
+        raise RuntimeError(f"device stamp launch failed: {lib.egnn_edge_error_string(err).decode()} ({err})")
+
+
+def capture_kernel_nodes(stream: int) -> tuple[int, int]:
+    """(kernel nodes, all nodes) of the graph that `stream` is capturing,
+    read from the graph itself (cudaGraphGetNodes)."""
+    lib = _load()
+    kernels, nodes = ctypes.c_longlong(), ctypes.c_longlong()
+    err = lib.kpdiff_capture_kernel_nodes(stream, ctypes.byref(kernels), ctypes.byref(nodes))
+    if err != 0:
+        raise RuntimeError(f"graph node count failed: {lib.egnn_edge_error_string(err).decode()} ({err})")
+    return kernels.value, nodes.value
 
 
 def snapshot_args(args) -> tuple:

@@ -20,6 +20,14 @@ every dense edge takes the CUDA kernel); the padded rows are dropped before
 decoding. Bond perception runs on the way out and molecules that fail to
 build are dropped.
 
+Tracing (utils/profiling.py): a request is the span serve.request, and its
+parts the spans serve.front_end, serve.sample (serve.encode,
+serve.compact_kk and serve.chain), serve.readback (the wait for the
+device), serve.decode and serve.build; `last_request`'s seconds are those spans' durations. Counters
+(serve.*): rows asked and run (repeat-padding), real ligand atom-steps and
+slot atom-steps (rows x bucket x chain steps), chunks by kk layout, kk cap
+grows, ligands decoded and built.
+
 `kp_shard_devices=n > 1` splits every chunk's keypoints over n devices, one
 rank each (parallel/kp_shard.py): rank 0 holds the requests and the front
 end, encodes each chunk and broadcasts the encoded complex; the other ranks
@@ -44,6 +52,7 @@ from kpdiff_tpu_torch.analysis.molecule_builder import BuiltMolecule, build_mole
 from kpdiff_tpu_torch.config import PaddingConfig, load_config, model_from_config, resolve_feature_sizes
 from kpdiff_tpu_torch.data.padding import pad_item, to_complex
 from kpdiff_tpu_torch.device import resolve_device
+from kpdiff_tpu_torch.utils import profiling
 from kpdiff_tpu_torch.utils.params_io import load_params, read_keystr_npz
 
 
@@ -228,17 +237,21 @@ class KeypointSampler:
     def _run(self, cpx, init_com):
         """Encode, compact kk and sample under no_grad, so that every dense
         edge takes the CUDA kernel. Returns the outputs and the kk layout."""
-        enc, kk = self.model.encode(cpx)
+        with profiling.span("serve.encode"):
+            enc, kk = self.model.encode(cpx)
         self.last_keypoints = (enc.kp_x[0], enc.kp_mask[0])  # the pocket's keypoints, for keypoints.xyz
-        kk = self.model.compact_kk(enc, kk, min_cap=self._kk_cap)
-        if isinstance(kk, tuple):
-            self._kk_cap = max(self._kk_cap, int(kk[0].shape[-1]))
-        if self._mesh is None:
-            out = self.model.sample(enc, kk, init_com=init_com, sample_steps=self.sample_steps, eta=self.eta,
-                                    generator=self._gen)
-        else:
-            self._bcast(_to_device((enc, kk, init_com), "cpu"))
-            out = self._sample_sharded(enc, kk, init_com)
+        with profiling.span("serve.compact_kk"):
+            kk = self.model.compact_kk(enc, kk, min_cap=self._kk_cap)
+        if isinstance(kk, tuple) and int(kk[0].shape[-1]) > self._kk_cap:
+            profiling.count("serve.kk_cap_grows")
+            self._kk_cap = int(kk[0].shape[-1])
+        with profiling.span("serve.chain"):
+            if self._mesh is None:
+                out = self.model.sample(enc, kk, init_com=init_com, sample_steps=self.sample_steps, eta=self.eta,
+                                        generator=self._gen)
+            else:
+                self._bcast(_to_device((enc, kk, init_com), "cpu"))
+                out = self._sample_sharded(enc, kk, init_com)
         return out, (f"nbr{int(kk[0].shape[-1])}" if isinstance(kk, tuple) else "dense")
 
     # ------------------------------------------------------------------ API
@@ -282,62 +295,71 @@ class KeypointSampler:
         """Sample `n_mols` ligands for one featurized pocket; returns the
         molecules that build (bonds perceived, largest fragment, valence
         checked)."""
-        t0 = time.perf_counter()
-        n_rec = rec_pos.shape[0]
-        if rec_res_idx is None:
-            rec_res_idx = np.zeros(n_rec, np.int32)
-        if interface_points is None:
-            interface_points = np.zeros((0, 3), np.float32)
-        # larger ligands first, so that each chunk's bucket is as tight as possible
-        sizes = np.sort(self._sizes(n_rec, n_mols, ligand_size, ref_n_atoms))[::-1]
-        stats = dict(front_end_s=time.perf_counter() - t0, sample_s=0.0, copy_s=0.0, build_s=0.0, chunks=[],
-                     sample_steps=self.sample_steps)
+        with profiling.span("serve.request", request=True):
+            with profiling.span("serve.front_end") as front:
+                n_rec = rec_pos.shape[0]
+                if rec_res_idx is None:
+                    rec_res_idx = np.zeros(n_rec, np.int32)
+                if interface_points is None:
+                    interface_points = np.zeros((0, 3), np.float32)
+                # larger ligands first, so that each chunk's bucket is as tight as possible
+                sizes = np.sort(self._sizes(n_rec, n_mols, ligand_size, ref_n_atoms))[::-1]
+            stats = dict(front_end_s=front.seconds, sample_s=0.0, copy_s=0.0, build_s=0.0, chunks=[],
+                         sample_steps=self.sample_steps)
+            chain_steps = len(self.model.chain_grid(self.sample_steps)) - 1
 
-        mols: List[BuiltMolecule] = []
-        done = 0
-        while done < n_mols:
-            t0 = time.perf_counter()
-            bs = min(self.batch_size, n_mols - done)
-            chunk = sizes[done: done + bs]
-            bucket = next(b for b in self.lig_buckets if int(chunk.max()) <= b)
-            pad_b = dataclasses.replace(self.pad, n_lig=bucket)
-            items = []
-            for n in chunk:
-                item = dict(
-                    lig_pos=np.zeros((int(n), 3), np.float32),
-                    lig_feat=np.zeros((int(n), len(self.lig_elements)), np.float32),
-                    rec_pos=rec_pos.astype(np.float32), rec_feat=rec_feat.astype(np.float32),
-                    rec_res_idx=rec_res_idx.astype(np.int32), interface_points=interface_points.astype(np.float32),
-                )
-                padded = pad_item(item, pad_b, n_lig_feat_out=self.n_lig_feat)
-                if padded is None:
-                    raise ValueError(f"pocket ({n_rec} atoms) exceeds padding capacity {self.pad.n_rec}")
-                items.append(padded)
-            items += [items[-1]] * (self.batch_size - bs)  # repeat-padded: one graph per (bucket, kk cap)
-            cpx = to_complex(items, pad_b, self.model.cfg.rec_nf, self.model.kp_vec_dim, device=self.device)
-            com = None
-            if init_com is not None:
-                com = torch.as_tensor(np.broadcast_to(np.asarray(init_com, np.float32),
-                                                      (self.batch_size, 3)).copy(), device=self.device)
-            t1 = time.perf_counter()
-            out, layout = self._run(cpx, com)
-            self._sync()
-            t2 = time.perf_counter()
-            ligands = decode_ligands({k: v[:bs] for k, v in out.items()}, self.lig_elements)
-            t3 = time.perf_counter()
-            for coords, elements in ligands:
-                mol = build_molecule(coords, elements)
-                if mol is not None:
-                    mols.append(mol)
-            t4 = time.perf_counter()
-            stats["front_end_s"] += t1 - t0
-            stats["sample_s"] += t2 - t1
-            stats["copy_s"] += t3 - t2
-            stats["build_s"] += t4 - t3
-            stats["chunks"].append(dict(batch=bs, bucket=bucket, kk=layout, sizes=[int(s) for s in chunk]))
-            done += bs
-        self.last_request = stats
-        return mols
+            mols: List[BuiltMolecule] = []
+            done = 0
+            while done < n_mols:
+                with profiling.span("serve.front_end") as front:
+                    bs = min(self.batch_size, n_mols - done)
+                    chunk = sizes[done: done + bs]
+                    bucket = next(b for b in self.lig_buckets if int(chunk.max()) <= b)
+                    pad_b = dataclasses.replace(self.pad, n_lig=bucket)
+                    items = []
+                    for n in chunk:
+                        item = dict(
+                            lig_pos=np.zeros((int(n), 3), np.float32),
+                            lig_feat=np.zeros((int(n), len(self.lig_elements)), np.float32),
+                            rec_pos=rec_pos.astype(np.float32), rec_feat=rec_feat.astype(np.float32),
+                            rec_res_idx=rec_res_idx.astype(np.int32),
+                            interface_points=interface_points.astype(np.float32),
+                        )
+                        padded = pad_item(item, pad_b, n_lig_feat_out=self.n_lig_feat)
+                        if padded is None:
+                            raise ValueError(f"pocket ({n_rec} atoms) exceeds padding capacity {self.pad.n_rec}")
+                        items.append(padded)
+                    items += [items[-1]] * (self.batch_size - bs)  # repeat-padded: one graph per (bucket, kk cap)
+                    cpx = to_complex(items, pad_b, self.model.cfg.rec_nf, self.model.kp_vec_dim, device=self.device)
+                    com = None
+                    if init_com is not None:
+                        com = torch.as_tensor(np.broadcast_to(np.asarray(init_com, np.float32),
+                                                              (self.batch_size, 3)).copy(), device=self.device)
+                with profiling.span("serve.sample") as sample:  # encode, compact_kk and chain
+                    out, layout = self._run(cpx, com)
+                with profiling.span("serve.readback") as readback:
+                    self._sync()
+                with profiling.span("serve.decode") as decode:
+                    ligands = decode_ligands({k: v[:bs] for k, v in out.items()}, self.lig_elements)
+                with profiling.span("serve.build") as build:
+                    for coords, elements in ligands:
+                        mol = build_molecule(coords, elements)
+                        if mol is not None:
+                            mols.append(mol)
+                stats["front_end_s"] += front.seconds
+                stats["sample_s"] += sample.seconds + readback.seconds
+                stats["copy_s"] += decode.seconds
+                stats["build_s"] += build.seconds
+                stats["chunks"].append(dict(batch=bs, bucket=bucket, kk=layout, sizes=[int(s) for s in chunk]))
+                for name, n in (("rows_asked", bs), ("rows_run", self.batch_size), (f"chunks_kk_{layout}", 1),
+                                ("lig_atom_steps", int(chunk.sum()) * chain_steps),
+                                ("slot_atom_steps", self.batch_size * bucket * chain_steps),
+                                ("ligands_decoded", len(ligands))):
+                    profiling.count(f"serve.{name}", n)
+                done += bs
+            profiling.count("serve.ligands_built", len(mols))
+            self.last_request = stats
+            return mols
 
 
 def _to_device(obj, device):

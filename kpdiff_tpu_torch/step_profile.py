@@ -15,28 +15,26 @@ default path, models/chain_graph.py).
 Prints, per bucket and path, the wall time per step, the device time per
 step summed over kernels, their ratio (the device's busy share) and, for
 the eager steps, the kernels that take the most device time; for the graph,
-its capture's seconds and pool bytes. For an EGNN config, then, for each shape of the
+its capture's seconds, pool bytes and kernel nodes, and the step's device
+time by edge set from the tracer's timers inside the graph
+(utils/profiling.py: ll, kl and lk, kk, the rest), beside the replays'
+device time on CUDA events. For an EGNN config, then, for each shape of the
 edge kernel on that bucket's path, one launch of the kernel's profiling
 build (-DEGNN_EDGE_PHASE_CLOCKS) on the inputs the path gave it: the share
 of the warps' SM clocks spent in each in-kernel phase, for each chain's
-consumer and helper warps. Then one step's
-calls of the edge modules (EGNN: the dense edges, the kNN pairs, the kk
-neighbor list; GVP: the edge messages by layout) replayed on their own
-inputs under torch.profiler, each module's device time beside the step's:
-the share a hand-written kernel for it could act on. --out also writes the
-tables to a file.
+consumer and helper warps. --out also writes the tables to a file.
 
 --train profiles training of --config instead (the flagship by default): molgen's 256-complex split at
 full padding, the config's batch size, the port's train step, eagerly
-(cuda_graph=False: launch by launch, as the per-module replay needs); 3
-warm-up steps, then 6 steps under torch.profiler (wall and device ms per
-step, busy share, top kernels), then the dense edge's share: every
-EGNNEdgeDense call of one step (ll and kk, 12; the plain version under
-autograd) replayed forward and backward on its own inputs, timed with CUDA
-events. --graph adds the same 6 steps replayed from the step's captured CUDA
+(cuda_graph=False: launch by launch); 3 warm-up steps, then 6 steps under
+torch.profiler (wall and device ms per step, busy share, top kernels).
+--graph adds the same 6 steps replayed from the step's captured CUDA
 graphs (the trainer's default path, training/train_graph.py), after 3
-steps that capture them: the same table, each capture's seconds and pool
-bytes, and the two paths side by side.
+steps that capture them: the same table, each capture's seconds, pool bytes
+and kernel nodes, the two paths side by side, and the graph step's device
+time by segment from the tracer's timers (encoder, ll, kl, kk, the OT loss,
+the optimizer, the rest; each segment's backward in its own slot) beside
+the replays' device time on CUDA events.
 """
 from __future__ import annotations
 
@@ -49,11 +47,11 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import kpdiff_tpu_torch.models.egnn as egnn_mod
-from kpdiff_tpu_torch.models.gvp import GVPEdgeMessages
 from kpdiff_tpu_torch.config import PaddingConfig, load_config, model_from_config, resolve_feature_sizes
 from kpdiff_tpu_torch.models.complex import synthetic_batch
 from kpdiff_tpu_torch.ops.cuda import egnn_edge
 from kpdiff_tpu_torch.utils.params_io import load_params, read_keystr_npz
+from kpdiff_tpu_torch.utils.profiling import SLOTS
 
 CONFIG = "configs/egnn_40kp.yml"
 BATCH = 128
@@ -85,8 +83,30 @@ def _kernel_table(prof, steps, wall):
     return lines
 
 
+def timer_split(graphs, run) -> str:
+    """One line: the device ms a replay of each slot that the tracer's
+    timers of `graphs` (ChainGraph entries) saw while `run()` replayed them,
+    their sum, and the replays' device time on CUDA events around `run`."""
+    before = [g.timers.read() for g in graphs]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    after = [g.timers.read() for g in graphs]
+    replays = sum(a["replays"] - b["replays"] for a, b in zip(after, before))
+    if not replays:
+        return "device timers: no replay"
+    ms = {k: sum(a["slots_ns"][k] - b["slots_ns"][k] for a, b in zip(after, before)) / replays * 1e-6 for k in SLOTS}
+    total = sum(ms.values())
+    events_ms = start.elapsed_time(end) / replays
+    return ("device timers (ms/replay): " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items() if v)
+            + f"; sum {total:.3f} against {events_ms:.3f} on CUDA events around the replays "
+            f"({(total / events_ms - 1) * 100:+.2f}%, {replays} replays, host gaps between replays included)")
+
+
 def train_profile(args):
-    """Training steps of --config on the card: profiler table, then the dense edge's share."""
+    """Training steps of --config on the card: profiler tables, and with --graph the timers' split."""
     from kpdiff_tpu_torch.cli.train import train_config_from
     from kpdiff_tpu_torch.data.dataset import PaddedLoader, resolve_lig_buckets
     from kpdiff_tpu_torch.data.molgen import molgen_splits_for_config
@@ -129,108 +149,21 @@ def train_profile(args):
         report += [f"{label} steps:"] + table
     if args.graph:
         report += [f"graph capture of bucket {c['inputs']['in.batch.lig_x'][1]}: {c['capture_s']:.3f} s, graph pool "
-                   f"{c['pool_bytes']} bytes" for c in model.train_graphs.captures]
+                   f"{c['pool_bytes']} bytes, {c['kernels_per_replay']} kernel nodes"
+                   for c in model.train_graphs.captures]
         report += [f"{label}: {line}" for label, line in summary.items()]
-    step_fn = paths["eager"]
+        graph_fn = paths["graph"]
 
-    # the dense edges of one step, replayed forward and backward on their own inputs
-    calls = []
-    real_forward = egnn_mod.EGNNEdgeDense.forward
+        def graph_steps():
+            for b in batches[3:]:
+                graph_fn(state, b, generator=gen)
 
-    def capturing(mod, h_src, h_dst, x_src, x_dst, adj):
-        calls.append((mod, h_src.detach(), h_dst.detach(), x_src.detach(), x_dst.detach(), adj))
-        return real_forward(mod, h_src, h_dst, x_src, x_dst, adj)
-
-    egnn_mod.EGNNEdgeDense.forward = capturing
-    try:
-        for b in batches[3:5]:  # one batch of each bucket
-            del calls[:]
-            bucket = int(b.lig_x.shape[1])
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            start.record()
-            step_fn(state, b, generator=gen)
-            end.record()
-            torch.cuda.synchronize()
-            step_ms = start.elapsed_time(end)
-            egnn_mod.EGNNEdgeDense.forward = real_forward
-            edge_ms = 0.0
-            for mod, *inputs in calls:
-                h_src, h_dst = (x.clone().requires_grad_() for x in inputs[:2])
-
-                def fwd_bwd():
-                    agg_h, agg_x = mod(h_src, h_dst, *inputs[2:])
-                    torch.autograd.backward((agg_h, agg_x), (torch.ones_like(agg_h), torch.ones_like(agg_x)))
-
-                fwd_bwd()
-                start.record()
-                for _ in range(3):
-                    fwd_bwd()
-                end.record()
-                torch.cuda.synchronize()
-                edge_ms += start.elapsed_time(end) / 3
-            model.zero_grad(set_to_none=True)
-            egnn_mod.EGNNEdgeDense.forward = capturing
-            shapes = sorted({f"{c[1].shape[1]}x{c[2].shape[1]}" for c in calls})
-            report.append(f"bucket {bucket}: step {step_ms:.3f} ms (CUDA events); its {len(calls)} dense edge calls "
-                          f"(Ns x Nd {', '.join(shapes)}) replayed forward and backward: {edge_ms:.3f} ms, "
-                          f"{edge_ms / step_ms * 100:.1f}% of the step")
-    finally:
-        egnn_mod.EGNNEdgeDense.forward = real_forward
+        report.append("graph steps, " + timer_split(list(model.train_graphs._entries.values()), graph_steps))
     report.append(f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB (torch.cuda.max_memory_allocated)")
     print("\n".join(report), flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text("\n".join(report) + "\n")
-
-
-# the modules whose calls a reverse step replays, by architecture: (label, class, method)
-EGNN_MODULES = (("ll/kk dense edges (the kernel)", egnn_mod.EGNNEdgeDense, "forward"),
-                ("kl/lk kNN pairs", egnn_mod.EGNNEdgeKNNPairs, "forward"),
-                ("kk neighbor list", egnn_mod.EGNNEdgeNbrList, "forward"))
-GVP_MODULES = (("GVP messages, dense grids (ll, kk)", GVPEdgeMessages, "dense"),
-               ("GVP messages, kNN pairs (kl, lk)", GVPEdgeMessages, "pairs"),
-               ("GVP messages, neighbor lists (kk)", GVPEdgeMessages, "nbr"))
-
-
-def _device_ms(fn) -> float:
-    """Device ms of the kernels `fn` launches (torch.profiler kernel rows)."""
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(_device_us(e) for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)) * 1e-3
-
-
-def module_device_ms(model, enc, kk, gen, modules):
-    """One reverse step's calls of each module method in `modules`, captured
-    and replayed on their own inputs under torch.profiler: {label: (calls,
-    device ms)}. Device time, not wall: the calls are host-paced."""
-    calls = {label: [] for label, _, _ in modules}
-    originals = [(cls, name, getattr(cls, name)) for _, cls, name in modules]
-
-    def capture(label, fn):
-        def f(mod, *a, **kw):
-            calls[label].append((mod, a, kw))
-            return fn(mod, *a, **kw)
-        return f
-
-    for (label, cls, name), (_, _, fn) in zip(modules, originals):
-        setattr(cls, name, capture(label, fn))
-    try:
-        model.sample(enc, kk, sample_steps=1, generator=gen, cuda_graph=False)
-    finally:
-        for cls, name, fn in originals:
-            setattr(cls, name, fn)
-    out = {}
-    with torch.no_grad():
-        for (label, _, _), (_, _, fn) in zip(modules, originals):
-            def replay():
-                for mod, a, kw in calls[label]:
-                    fn(mod, *a, **kw)
-            replay()  # warm-up
-            out[label] = (len(calls[label]), _device_ms(replay) if calls[label] else 0.0)
-    return out
 
 
 def _edge_key(role, a):
@@ -312,6 +245,7 @@ def main():
         lines = [f"bucket {n_lig}: kk={layout} eager steps: {table[0]}"] + table[1:]
         model.sample(enc, kk, sample_steps=2, generator=gen)  # the step's graph: warm-up step and capture
         cap = model.chain_graphs.captures[-1]
+        entry = model.chain_graphs.last
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as gprof:
             t0 = time.perf_counter()
             model.sample(enc, kk, sample_steps=STEPS, generator=gen)
@@ -319,7 +253,9 @@ def main():
             gwall = time.perf_counter() - t0
         lines.append(f"  CUDA graph replays: {_kernel_table(gprof, STEPS, gwall)[0]}; capture "
                      f"{cap['capture_s']:.3f} s, graph pool {cap['pool_bytes']} bytes, "
-                     f"{cap['launches_per_replay']} edge-kernel launches a replay")
+                     f"{cap['launches_per_replay']} edge-kernel launches and {cap['kernels_per_replay']} kernel "
+                     f"nodes a replay")
+        lines.append("  " + timer_split([entry], lambda: model.sample(enc, kk, sample_steps=STEPS, generator=gen)))
         # the edge kernel launch by launch: profiled device time beside active pairs
         kern = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
                        and "egnn_edge_" in e.name), key=lambda e: e.time_range.start)
@@ -333,13 +269,6 @@ def main():
                              f"at {rows[-1][1]} pairs")
         elif chain:
             lines.append(f"  edge kernel: {len(kern)} kernel events for {len(chain)} launches (not matched)")
-        step_ms = _device_ms(lambda: model.sample(enc, kk, sample_steps=1, generator=gen, cuda_graph=False))
-        by_module = module_device_ms(model, enc, kk, gen, GVP_MODULES if model.gvp else EGNN_MODULES)
-        total = sum(ms for _, ms in by_module.values())
-        lines.append(f"  one reverse step {step_ms:.3f} device ms; its calls replayed by module (device ms, share): "
-                     + "; ".join(f"{label} x{n} {ms:.3f} ms {ms / step_ms * 100:.1f}%"
-                                 for label, (n, ms) in by_module.items())
-                     + f"; these modules {total / step_ms * 100:.1f}% of the step")
         for key, (a, kw) in sorted(captured.items()):
             for warps, clocks in egnn_edge.phase_clocks(*a, **kw).items():
                 total = sum(clocks.values())

@@ -6,7 +6,8 @@ of its jitted held-out loss (kpdiff_tpu/cli/train.py:376-385).
 
 `TrainGraphs` is models/chain_graph.py's runner (its warm-up on a side
 stream, `cuda_capture` / `host_capture`, shared memory pool, bounded cache,
-capture records) with one call per step instead of a chain of replays:
+capture records, captures armed with the tracer's device timers) with one
+call per step instead of a chain of replays:
   * static buffers: a copy of every tensor of the step's inputs (the
     PaddedComplex batch's fields, injected (t_int, eps_x, eps_h)) and one
     0-d f32 tensor per host scalar (the learning rate, w_rec), filled with
@@ -78,7 +79,15 @@ class TrainGraphs(ChainGraphs):
         and first replay, or with no live graph the eager warm-up call (its
         result returned) and the capture. Returns fn's result; a replay's
         lives in the graph's buffers, which the next replay of any of this
-        runner's graphs may overwrite: read it first."""
+        runner's graphs may overwrite: read it first. `entry` then `launch`
+        is the same in two calls (the trainer's host spans end between them)."""
+        return self.launch(self.entry(inputs, device=device, key=key, params_key=params_key, generator=generator,
+                                      scalars=scalars), fn)
+
+    def entry(self, inputs, *, device, key: tuple = (), params_key=None, generator: Optional[torch.Generator] = None,
+              scalars: Optional[Dict[str, float]] = None) -> ChainGraph:
+        """The graph entry of `run`'s arguments, its static buffers filled
+        (no graph yet where `entry.graph` is None)."""
         device = torch.device(device)
         if self._capture is cuda_capture and device.type != "cuda":
             raise ValueError(f"a CUDA graph of the step needs CUDA tensors, got {device}")
@@ -102,7 +111,11 @@ class TrainGraphs(ChainGraphs):
         for k, v in scalars.items():
             entry.static[k].fill_(v)
         self.last = entry
+        return entry
 
+    def launch(self, entry: ChainGraph, fn: Callable[[Dict[str, Any]], Any]):
+        """`run`'s second half on an entry of `entry`: the replay, or the
+        warm-up and capture."""
         def step(s):
             s["out"] = fn(s)
 

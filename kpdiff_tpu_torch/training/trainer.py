@@ -54,6 +54,7 @@ from kpdiff_tpu_torch.models.complex import PaddedComplex
 from kpdiff_tpu_torch.models.diffusion import KeypointDiffusion, device_t_eps
 from kpdiff_tpu_torch.training.scheduler import SchedulerConfig, learning_rate, rec_encoder_weight
 from kpdiff_tpu_torch.training.train_graph import batch_fields, capture_refusal
+from kpdiff_tpu_torch.utils import profiling
 
 ADAM_BETAS = (0.9, 0.999)  # optax.adam's defaults
 ADAM_EPS = 1e-8
@@ -296,6 +297,7 @@ def train_step_body(model: KeypointDiffusion, cfg: TrainConfig, opt: Adam, batch
         p.grad = g
     opt.flat_grad.zero_()
     total, loss_sums = loss_and_grads(model, cfg, batch, w_rec, params, generator, t_eps, mesh, kp_axis)
+    profiling.device_mark("rest")  # the device timers' segments (utils/profiling.py)
     keys = sorted(loss_sums)
     finite = torch.isfinite(total) & torch.isfinite(opt.flat_grad).all()
     vec = torch.stack([finite.to(total.dtype), total] + [loss_sums[k] for k in keys])
@@ -303,6 +305,7 @@ def train_step_body(model: KeypointDiffusion, cfg: TrainConfig, opt: Adam, batch
         # an agreed skip and the global means: sums over every rank (the host divides by the rank count)
         dist.all_reduce(vec, group=mesh.world)
         finite = vec[0] == mesh.n_devices
+    profiling.device_mark("optimizer")
     if cfg.clip_grad:
         opt.flat_grad.clamp_(-cfg.clip_value, cfg.clip_value)
     opt.update(lr, finite)
@@ -335,27 +338,42 @@ def make_train_step(cfg: TrainConfig, iters_per_epoch: int, mesh=None, kp_axis: 
 
     def step_fn(state: TrainState, batch: PaddedComplex, generator: Optional[torch.Generator] = None,
                 t_eps: Optional[Tuple[Any, Any, Any]] = None) -> Dict[str, float]:
-        model, opt = state.model, state.optimizer
-        epoch_exact = float(np.float32(state.step) / np.float32(iters_per_epoch))
-        w_rec = rec_encoder_weight(sched, epoch_exact)
-        lr = learning_rate(sched, epoch_exact)
-        dev = opt.device
-        refusal = capture_refusal(model, mesh)
-        graph = cuda_graph
-        if graph is None:
-            graph = refusal is None and dev.type == "cuda"
-        elif graph and refusal:
-            raise ValueError(f"cuda_graph=True: {refusal}")
-        t_eps = device_t_eps(t_eps, dev)
-        opt.prepare()
-        if graph:
-            vec, keys = _graph_step(model, cfg, opt, batch, t_eps, generator, lr, w_rec)
-        else:
-            vec, keys = train_step_body(model, cfg, opt, batch, t_eps, generator,
-                                        torch.full((), lr, dtype=torch.float32, device=dev),
-                                        torch.full((), w_rec, dtype=torch.float32, device=dev), mesh, kp_axis)
-        n = mesh.n_devices if mesh is not None and mesh.world is not None else 1
-        host = [v / n for v in vec.tolist()]
+        with profiling.span("train.step", request=True):
+            # host spans (utils/profiling.py): prepare, from here to the launch; launch; finish, the
+            # version bumps and the readback wait
+            prep = profiling.span("train.prepare").__enter__()
+            model, opt = state.model, state.optimizer
+            epoch_exact = float(np.float32(state.step) / np.float32(iters_per_epoch))
+            w_rec = rec_encoder_weight(sched, epoch_exact)
+            lr = learning_rate(sched, epoch_exact)
+            dev = opt.device
+            refusal = capture_refusal(model, mesh)
+            graph = cuda_graph
+            if graph is None:
+                graph = refusal is None and dev.type == "cuda"
+            elif graph and refusal:
+                raise ValueError(f"cuda_graph=True: {refusal}")
+            t_eps = device_t_eps(t_eps, dev)
+            opt.prepare()
+            profiling.count("train.steps")
+            if graph:
+                vec, keys = _graph_step(model, cfg, opt, batch, t_eps, generator, lr, w_rec, prep)
+            else:
+                prep.stop(total_as="train.prepare.eager")
+                with profiling.span("train.launch"):
+                    vec, keys = train_step_body(model, cfg, opt, batch, t_eps, generator,
+                                                torch.full((), lr, dtype=torch.float32, device=dev),
+                                                torch.full((), w_rec, dtype=torch.float32, device=dev), mesh,
+                                                kp_axis)
+            with profiling.span("train.finish"):
+                if graph:
+                    # a replay does not move version counters: move them as an eager step's in-place ops
+                    # would, so that the caches keyed on the parameters' versions (the sampler's
+                    # compute-dtype copy, the edge kernel's packed weights, the chain and held-out loss
+                    # graphs) rebuild
+                    torch.autograd.graph.increment_version(opt.params + opt.buffers())
+                n = mesh.n_devices if mesh is not None and mesh.world is not None else 1
+                host = [v / n for v in vec.tolist()]
         for group in opt.param_groups:  # the last learning rate, as a float, for the checkpoint
             group["lr"] = lr
         state.step += 1
@@ -366,25 +384,32 @@ def make_train_step(cfg: TrainConfig, iters_per_epoch: int, mesh=None, kp_axis: 
     return step_fn
 
 
-def _graph_step(model, cfg, opt, batch, t_eps, generator, lr, w_rec):
+def _graph_step(model, cfg, opt, batch, t_eps, generator, lr, w_rec, prep: profiling.Span):
     """The step through `model.train_graphs`: the batch and t_eps copied into
-    the graph's static buffers, lr and w_rec filled into its scalars, the
-    replay (or, for a new shape, the eager warm-up step and the capture).
-    Then the version counter of every tensor the step wrote moves, as an
-    eager step's in-place ops move it: the caches keyed on the parameters'
-    versions (the sampler's compute-dtype copy, the edge kernel's packed
-    weights, the chain graphs, the held-out loss graphs) rebuild."""
+    the graph's static buffers, lr and w_rec filled into its scalars, then
+    `prep` (the span train.prepare) ends and the replay (or, for a new
+    shape, the eager warm-up step and the capture) is launched. The caller
+    then moves the version counter of every tensor the step wrote. A step
+    that captures, or runs while a profiler records, keeps its prepare time
+    out of the train.prepare totals (train.prepare.capture,
+    train.prepare.profiled)."""
     params = opt.params
 
     def body(s):
         return train_step_body(model, cfg, opt, PaddedComplex(**s["in"]["batch"]), s["in"]["t_eps"], generator,
                                s["lr"], s["w_rec"])
 
-    out = model.train_graphs.run(body, {"batch": batch_fields(batch), "t_eps": t_eps}, device=opt.device,
-                                 key=(cfg,), params_key=(tuple(p.data_ptr() for p in params), opt.buffers_key()),
-                                 generator=generator, scalars={"lr": lr, "w_rec": w_rec})
-    torch.autograd.graph.increment_version(params + opt.buffers())
-    return out
+    runner = model.train_graphs
+    entry = runner.entry({"batch": batch_fields(batch), "t_eps": t_eps}, device=opt.device, key=(cfg,),
+                         params_key=(tuple(p.data_ptr() for p in params), opt.buffers_key()),
+                         generator=generator, scalars={"lr": lr, "w_rec": w_rec})
+    if entry.graph is None:
+        profiling.count("train.steps_captured")
+        prep.stop(total_as="train.prepare.capture")
+    else:
+        prep.stop(total_as="train.prepare.profiled" if profiling.tracing() else None)
+    with profiling.span("train.launch"):
+        return runner.launch(entry, body)
 
 
 # --------------------------------------------------------------------------

@@ -4,7 +4,7 @@ process_crossdocked (split pickles, type counts, size histogram, molecule
 keys), process_pdbbind / PDBbindDataset, write_pocket_file and
 gen_commands; then raw -> process -> train -> sample (--ligand_size random)
 -> metrics through the port's CLIs on the CPU at a tiny config, and
-PhaseTimer on the CPU."""
+the tracer on the CPU."""
 import copy
 import pickle
 import shutil
@@ -256,18 +256,23 @@ def test_raw_to_metrics_pipeline(tmp_path):
 
 
 def test_phase_timer_on_cpu(tmp_path):
-    from kpdiff_tpu_torch.utils.profiling import PhaseTimer, device_trace
+    """The tracer's host spans (utils/profiling.py) on the CPU and its one
+    exporter: span totals always, their kpdiff.* ranges in the Chrome trace
+    that device_trace writes."""
+    import json
 
-    timer = PhaseTimer()
-    x = torch.ones(4)
+    from kpdiff_tpu_torch.utils import profiling
+
+    before = profiling.snapshot()["spans"].get("test.host", {"n": 0, "ns": 0})
     for _ in range(3):
-        with timer.phase("host"):
+        with profiling.span("test.host"):
             sum(range(1000))
-    with timer.phase("cpu_tensor", sync=x):  # a CPU tensor: the host clock
-        x = x * 2
-    rep = timer.report()
-    assert rep["host"]["count"] == 3 and rep["host"]["total_s"] > 0 and rep["host"]["clock"] == "host"
-    assert rep["cpu_tensor"]["clock"] == "host" and "host: " in str(timer)
-    with device_trace(str(tmp_path / "trace"), cuda=False):
-        torch.ones(8) @ torch.ones(8)
-    assert len(list((tmp_path / "trace").glob("trace_*.json"))) == 1
+    after = profiling.snapshot()["spans"]["test.host"]
+    assert after["n"] == before["n"] + 3 and after["ns"] > before["ns"]
+    with profiling.device_trace(str(tmp_path / "trace"), cuda=False):
+        with profiling.span("test.traced"):
+            torch.ones(8) @ torch.ones(8)
+    traces = list((tmp_path / "trace").glob("trace_*.json"))
+    assert len(traces) == 1
+    names = {e.get("name") for e in json.loads(traces[0].read_text())["traceEvents"]}
+    assert "kpdiff.test.traced" in names and "kpdiff.test.host" not in names
