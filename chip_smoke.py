@@ -43,7 +43,7 @@ Phases, each timed on its own line; any failure raises (non-zero exit):
      trainer on its default path, replays of the step's captured CUDA graphs
      (the dense edges take the kernel's plain version under autograd), with
      device and host ms/step and peak memory; the held-out loss under
-     no_grad through the kernel (replays of the loss's captured graphs, 12
+     no_grad through the kernel (replays of the loss's captured graphs, 24
      launches per batch) against the same pass through the plain version,
      eagerly; a checkpoint, its npz export and one sampling request served
      from it;
@@ -77,9 +77,10 @@ Phases, each timed on its own line; any failure raises (non-zero exit):
      torch.save / torch.load and the port's convert_reference_checkpoint,
      every leaf equal bitwise; the trained flagship with the upstream's graph
      options set in memory, batch 32, bucket 32, K=50, beside the config's
-     own kl_k 5 pairs: kl_k 0 under both z_semantics (24 launches a step,
-     every launch of a 3-step chain against the plain version, the new kl
-     40 -> 32 and lk 32 -> 40 grids timed) and ll_k 16 (12 a step); the
+     own kl_k 5 kNN mask (24 launches a step): kl_k 0 under both
+     z_semantics (24 a step, every launch of a 3-step chain against the
+     plain version, the radius kl 40 -> 32 and lk 32 -> 40 grids timed) and
+     ll_k 16 (24 a step); the
      learned EGNN and GVP encoders with rr_layout nbr and block, timed at
      batch 32.
  11. parallel: the parallel layer (kpdiff_tpu_torch/parallel/) at world size
@@ -108,10 +109,10 @@ Phases, each timed on its own line; any failure raises (non-zero exit):
      draws against eager draws (bitwise), two successive requests (they
      differ; neither output aliases the graph's buffers), then under
      torch.profiler 10 steps of each path (wall and device ms a step, busy
-     share) with the edge kernel's rows counted (12 a step, equal to the
+     share) with the edge kernel's rows counted (24 a step, equal to the
      launches captured times the replays); the trained gvp_40kp at bucket
      48 the same way (K=50); and the profiled launches of graph chains on
-     the other layouts (egnn_ca on compact_kk's list, 6 a step; the
+     the other layouts (egnn_ca on compact_kk's list, 18 a step; the
      flagship with kl_k 0, 24 a step).
  13. train graphs: the optimizer step and the held-out loss as captured
      CUDA graphs against eager, on the trained flagship at batch 64 with
@@ -124,7 +125,7 @@ Phases, each timed on its own line; any failure raises (non-zero exit):
      seconds, the train graphs' pool bytes and the peak memory with a third
      bucket (48) captured, 4 steps of each path under torch.profiler (wall
      and device ms a step, busy share, kernels a step); the held-out loss
-     graphs on phase 6's held-out batches (12 edge-kernel launches a batch:
+     graphs on phase 6's held-out batches (24 edge-kernel launches a batch:
      captured x replays plus the first batch's eager warm-up) against the plain version
      eagerly; and the caches keyed on parameter versions after replayed
      steps: the analyzer's chain (encode -> sample on the graph path, K=10,
@@ -141,9 +142,10 @@ torch.profiler's kernel rows at the end of the run, since the profiler slows
 every launch that follows it.
 Every sampling path is held to its kernel launch count (ChainLog): for EGNN,
 n_layers launches per reverse step for ll, as many again for kk while it is
-dense or in blocks, and with kl_k 0 as many again for each of kl and lk (12
-a step; 6 where compact_kk gives a neighbor list; 24 with dense kl/lk);
-none for GVP, whose messages run in plain PyTorch. Sampling replays a
+dense or in blocks, and as many again for kl and, with update_kp_feat, for
+lk (the kNN mask, or the radius grid with kl_k 0): 24 a flagship step, 18
+where compact_kk gives a neighbor list; none for GVP, whose messages run in
+plain PyTorch. Sampling replays a
 captured CUDA graph of the reverse step by default: the first chain of a
 shape runs its first step eagerly (its launches counted as they are made)
 and captures the step (the wrapper counts the calls it records in
@@ -254,7 +256,7 @@ PAR_STEPS, PAR_BATCH, PAR_BUCKET, PAR_K = 5, 32, 32, 50
 # bf16 rounding into parameter differences)
 PAR_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
 # phase 12: graph against eager; a graph step against the eager step on one state, relative to the state's scale
-# (bitwise expected; the kNN pairs' scatter-adds sum in another order from run to run on the card)
+# (bitwise expected; GVP's kNN pairs' scatter-adds sum in another order from run to run on the card)
 GRAPH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 GRAPH_PROFILE_STEPS, GVP_GRAPH_K = 10, 50
 # phase 13: graph against eager training steps on phase 6's batches; phase 11's bounds for two trainers
@@ -606,12 +608,12 @@ def train_phase(params_path, seed, dev):
         ev_plain = evaluate(model, fixed, dev, torch.Generator(device=dev).manual_seed(seed + 9), cuda_graph=False)
     finally:
         egnn_mod.egnn_edge_dense = real
-    n_layers = cfg["dynamics"]["n_layers"]
-    want = 2 * n_layers * len(eval_batches)
+    per_batch = launches_per_step(model, None)  # the loss's kk is dense
+    want = per_batch * len(eval_batches)
     eval_err = {k: _rel(ev_kernel[k], ev_plain[k]) for k in ev_plain}
     print(f"train eval: {len(eval_batches)} held-out batches (buckets "
           f"{[int(b_.lig_x.shape[1]) for b_ in eval_batches]}), {eval_launches} kernel launches "
-          f"({2 * n_layers} per batch); kernel vs plain loss rel err "
+          f"({per_batch} per batch); kernel vs plain loss rel err "
           + ", ".join(f"{k} {v:.3e}" for k, v in sorted(eval_err.items())) + f" (gate {LOSS_TOL[torch.bfloat16]:.0e}); "
           + ", ".join(f"{k} {v:.4f}" for k, v in sorted(ev_kernel.items())), flush=True)
     if eval_launches != want:
@@ -656,15 +658,16 @@ def kk_layout(kk) -> str:
 
 
 def launches_per_step(model, kk) -> int:
-    """Edge-kernel launches of one reverse step: n_layers for ll, as many
-    again for kk while it is dense or in blocks (EGNN with update_kp_feat),
-    and with kl_k 0 as many again for the dense kl grid and, with
-    update_kp_feat, for lk; none for GVP, whose messages run in plain PyTorch."""
+    """Edge-kernel launches of one reverse step (or held-out loss) under
+    no_grad on the card: n_layers for ll, as many again for kk while it is
+    dense or in blocks (EGNN with update_kp_feat), and as many again for kl
+    (the kNN mask, or the radius grid with kl_k 0) and, with update_kp_feat,
+    for lk; none for GVP, whose messages run in plain PyTorch."""
     if model.gvp:
         return 0
     dyn = model.dynamics
-    dense_kl = int(dyn.kl_k <= 0) * (1 + int(dyn.update_kp_feat))
-    return dyn.n_layers * (1 + dense_kl + int(dyn.update_kp_feat and not isinstance(kk, tuple)))
+    kp = int(dyn.update_kp_feat)
+    return dyn.n_layers * (2 + kp + int(kp and not isinstance(kk, tuple)))
 
 
 class ChainLog:
@@ -2015,7 +2018,7 @@ def graph_phase(params_path, seed, dev):
     rec["gvp_40kp"] = graph_chain_record(gvp, genc, gkk, ggen, "gvp_40kp bucket 48", GVP_GRAPH_K, BATCH,
                                          (0, 1, GVP_GRAPH_K - 1), GRAPH_TOL[gvp.cd])
 
-    # graph chains of the other edge layouts: egnn_ca on compact_kk's list (6 launches a step, seeded
+    # graph chains of the other edge layouts: egnn_ca on compact_kk's list (18 launches a step, seeded
     # weights), the flagship with kl_k 0 (24 a step)
     layouts = {}
     ca_cfg = load_config("configs/egnn_ca.yml")
@@ -2233,7 +2236,7 @@ def train_graph_phase(params_path, seed, dev, batches, eval_batches, iters_per_e
             ev_plain = evaluate(gm, fixed, dev, torch.Generator(device=dev).manual_seed(seed + 9), cuda_graph=False)
         finally:
             egnn_mod.egnn_edge_dense = real
-        per_batch = 2 * cfg["dynamics"]["n_layers"]
+        per_batch = launches_per_step(gm, None)  # the loss's kk is dense
         ev_err = {k: _rel(ev_graph[k], ev_plain[k]) for k in ev_plain}
         replays = sum(e.replays for e in entries)
         r["eval"] = dict(batches=len(eval_batches), launches=ev_launches, graphs=len(entries),
@@ -2376,7 +2379,9 @@ def main():
     real_wrapper = egnn_mod.egnn_edge_dense
 
     def recording_wrapper(*a, **kw):
-        key = ("kk" if a[0].shape[1] == pad.n_kp else "ll") + str(a[0].shape[1])
+        ns, nd = a[0].shape[1], a[1].shape[1]
+        kind = "kk" if ns == nd == pad.n_kp else "kl" if ns == pad.n_kp else "lk" if nd == pad.n_kp else "ll"
+        key = kind + (str(ns) if ns == nd else f"{ns}to{nd}")
         if key not in captured:
             captured[key] = (egnn_edge.snapshot_args(a), kw["compute_dtype"])
         return real_wrapper(*a, **kw)
@@ -2402,7 +2407,7 @@ def main():
             torch.cuda.synchronize()
             dt = time.perf_counter() - t1
             launches = egnn_edge.launches
-            want = (2 if layout == "dense" else 1) * n_layers * STEPS
+            want = launches_per_step(model, kk) * STEPS
             for k, shape in (("lig_x", (BATCH, n_lig, 3)), ("lig_h", (BATCH, n_lig, 10))):
                 if tuple(out[k].shape) != shape or not torch.isfinite(out[k]).all():
                     raise RuntimeError(f"bucket {n_lig}: {k} has shape {tuple(out[k].shape)} or is not finite")
@@ -2467,7 +2472,7 @@ def main():
           flush=True)
     if not chain_step_err <= TOL[torch.bfloat16]:
         raise RuntimeError(f"a launch in the 10-step chain differs from the plain version: {chain_step_err:.3e}")
-    if len(step_errs) != 2 * n_layers * K10 and len(step_errs) != n_layers * K10:
+    if len(step_errs) != launches_per_step(model, kk) * K10:
         raise RuntimeError(f"the 10-step chain made {len(step_errs)} kernel calls")
     del encoded
     phase("slice", t0)
@@ -2536,10 +2541,10 @@ def main():
     flat = read_keystr_npz(args.params)
     options, option_inputs = {}, []
     for label, over, check, per_step in (
-            ("default_knn_pairs", {}, 0, 12),  # the config's own kl_k 5 pairs and radius ll: the baseline
+            ("default_knn_pairs", {}, 0, 24),  # the config's own kl_k 5 kNN mask and radius ll: the baseline
             ("kl_radius_intent", dict(kl_k=0, z_semantics="intent"), REF_CHECK_STEPS, 24),
             ("kl_radius_executed", dict(kl_k=0, z_semantics="executed"), REF_CHECK_STEPS, 24),
-            ("ll_knn16", dict(ll_k=16), 0, 12)):
+            ("ll_knn16", dict(ll_k=16), 0, 24)):
         options[label], path = graph_option_phase(ref_cfg, flat, args.seed, dev, label, over, check, option_inputs)
         if path["launches_per_step"] != per_step:
             raise RuntimeError(f"{label}: {path['launches_per_step']} launches a step, expected {per_step}")

@@ -2,10 +2,16 @@
 
 Ligand-ligand edges are a dense grid, the radius graph or, with ll_k > 0,
 each ligand atom's ll_k nearest ligand atoms. Keypoint-ligand edges are,
-with kl_k > 0, a kNN pair list (each keypoint's kl_k nearest ligand atoms)
-and, with kl_k == 0, the dense radius grid (B, K, Nl) on the kl cutoff, lk
-its transpose. All are rebuilt from current positions on every call; the kk
-edge structure comes in from the encoder, dense (B, K, K), a neighbor list
+with kl_k > 0, each keypoint's kl_k nearest ligand atoms and, with
+kl_k == 0, the dense radius grid (B, K, Nl) on the kl cutoff, lk its
+transpose. The kNN edges are a dense (B, K, Nl) mask (lk its transpose)
+where the edge kernel is taken (CUDA tensors, nothing recording autograd:
+`kl_on_kernel`), and a pair list (idx, valid) elsewhere (training, the
+CPU), where a dense plain version would do the whole grid's pair work; the
+two carry the same edge set. The counters dynamics.kl_route_kernel and
+dynamics.kl_route_pairs (utils/profiling.py) count the kNN kl and lk module
+calls by route. All edges are rebuilt from current positions on every call;
+the kk edge structure comes in from the encoder, dense (B, K, K), a neighbor list
 (idx, valid) or blocks (below). The timestep is appended as a feature
 channel, so the working width is hidden_nf + 1. The kk structure may also
 be the banded block layout {'block': adj (B, nt, 3 * tile, tile)} over
@@ -13,11 +19,12 @@ spatially sorted keypoints (kk_layout 'block', the all-atom configs): each
 tile of `tile` destinations against the 3 * tile sources of its window,
 reshaped to a dense (B * nt, 3 * tile, tile) grid.
 
-Every dense edge grid (ll, kl and lk while dense, kk while dense, and the
-block windows) goes through the CUDA edge kernel under no_grad, as the JAX
-package's sampler does with `dynamics.use_pallas_sampling` for ll, kl, lk
-and dense kk; the JAX package's block branch never takes its Pallas kernel,
-the port's does. The kl and lk modules are named `edge_kl` and `edge_lk`
+Every dense edge grid (ll, kl and lk while dense or a kNN mask, kk while
+dense, and the block windows) goes through the CUDA edge kernel under
+no_grad, as the JAX package's sampler does with
+`dynamics.use_pallas_sampling` for ll, dense kl, lk and dense kk; the JAX
+package's kNN pairs and block branch never take its Pallas kernel, the
+port's do. The kl and lk modules are named `edge_kl` and `edge_lk`
 under either layout, with the same parameters, so one archive loads under
 both. While autograd records they take the kernel's plain version. `remat`
 recomputes each conv layer in the backward pass (torch.utils.checkpoint),
@@ -39,16 +46,19 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from kpdiff_tpu_torch.models.egnn import EGNNEdgeDense, EGNNEdgeKNNPairs, EGNNEdgeNbrList, NodeUpdate
+from kpdiff_tpu_torch.models.egnn import EGNNEdgeDense, EGNNEdgeKNNPairs, EGNNEdgeNbrList, NodeUpdate, records_grad
 from kpdiff_tpu_torch.models.nn import MLP
+from kpdiff_tpu_torch.ops.cuda.egnn_edge import kernel_device
 from kpdiff_tpu_torch.ops.neighbors import dense_knn_adjacency, dense_radius_adjacency, knn_indices
 from kpdiff_tpu_torch.ops.spatial import block_windows
+from kpdiff_tpu_torch.utils import profiling
 from kpdiff_tpu_torch.utils.profiling import device_mark
 
 
 class EGNNConvLayer(nn.Module):
     """One heterograph EGNN layer: dense ll, kl as kNN pairs or a dense grid
-    (dense_kl), and lk, kk with update_kp_feat."""
+    (a radius grid with dense_kl, or the kNN mask on the kernel's route), and
+    lk, kk with update_kp_feat."""
 
     def __init__(self, hidden_size: int, gen: torch.Generator, use_tanh: bool, update_kp_feat: bool,
                  norm: bool, dtype: str = "float32", dense_kl: bool = False):
@@ -88,6 +98,12 @@ class EGNNConvLayer(nn.Module):
                               adj.reshape(b * nt, w, tile))
         return dh.reshape(b, nt * tile, f), dx.reshape(b, nt * tile, 3)
 
+    def _dense(self, name: str):
+        """The call that takes a dense kl or lk grid: the dense module, or
+        the kNN-pair module's kernel entry for the kNN mask."""
+        mod = getattr(self, name)
+        return mod if self.dense_kl else mod.kernel
+
     def forward(self, h, x, edges, z, masks, kp_shard=None):
         agg_h = {"lig": 0.0, "kp": 0.0}
         agg_x = {"lig": 0.0, "kp": 0.0}
@@ -104,15 +120,15 @@ class EGNNConvLayer(nn.Module):
         # the replicated ligand as the keypoint edges of this rank see it
         h_lig, x_lig = (h["lig"], x["lig"]) if sh is None else sh.enter(h["lig"], x["lig"])
         h_kp, x_kp, h_lig, x_lig = device_mark("kl", h["kp"], x["kp"], h_lig, x_lig)
-        if self.dense_kl:
-            kl = self.edge_kl(h_kp, h_lig, x_kp, x_lig, edges["kl"])
+        if "kl" in edges:
+            kl = self._dense("edge_kl")(h_kp, h_lig, x_kp, x_lig, edges["kl"])
         else:
             idx, valid = edges["kl_pairs"]
             kl = self.edge_kl(h_kp, h_lig, x_kp, x_lig, idx, valid)
         add("lig", kl if sh is None else sh.reduce(*kl))
         if self.update_kp_feat:
-            if self.dense_kl:
-                add("kp", self.edge_lk(h_lig, h_kp, x_lig, x_kp, edges["lk"]))
+            if "lk" in edges:
+                add("kp", self._dense("edge_lk")(h_lig, h_kp, x_lig, x_kp, edges["lk"]))
             else:
                 add("kp", self.edge_lk(h_kp, h_lig, x_kp, x_lig, idx, valid))
             kk = edges["kk"]
@@ -179,6 +195,13 @@ class EGNNDynamics(nn.Module):
             mods += [getattr(conv, n) for n in ("edge_kl", "edge_lk", "edge_kk", "update_kp") if hasattr(conv, n)]
         return mods
 
+    def kl_on_kernel(self, *inputs) -> bool:
+        """Whether the kNN kl and lk edges of a call on `inputs` go through
+        the edge kernel as a dense mask: the tensors where the kernel runs
+        (CUDA) and nothing recording autograd. The kNN modules are always in
+        the kernel's configuration (EGNNEdgeKNNPairs)."""
+        return kernel_device(inputs[0].device) and not records_grad(self, *inputs)
+
     def forward(self, lig_x, lig_h, lig_mask, kp_x, kp_h, kp_mask, t, kk_edges=None, kp_shard=None):
         """kp_shard: a ShardContext when the keypoint tensors are this rank's rows."""
         sh = kp_shard
@@ -197,11 +220,20 @@ class EGNNDynamics(nn.Module):
             ll = dense_radius_adjacency(lig_x, lig_mask, lig_x, lig_mask, self.ll_cutoff, exclude_self=True)
         edges: Dict[str, object] = {"ll": ll}
         if self.kl_k > 0:
-            # per-keypoint k nearest ligand atoms as an explicit pair list
-            kl_idx, _dist, kl_valid = knn_indices(lig_x, lig_mask, kp_x, kp_mask, self.kl_k)
-            kl_valid = kl_valid & kp_mask[:, :, None]
-            edges["kl_pairs"] = (kl_idx, kl_valid)
-            e_kl = torch.sum(kl_valid, dim=(1, 2))
+            on_kernel = self.kl_on_kernel(lig_x, lig_h, kp_x, kp_h, t)
+            profiling.count("dynamics.kl_route_kernel" if on_kernel else "dynamics.kl_route_pairs",
+                            self.n_layers * (1 + int(self.update_kp_feat)))
+            if on_kernel:
+                # each keypoint's k nearest ligand atoms as a dense mask (a rank's keypoint rows give its own)
+                edges["kl"] = dense_knn_adjacency(kp_x, kp_mask, lig_x, lig_mask, self.kl_k, per="src")
+                edges["lk"] = edges["kl"].transpose(1, 2).contiguous()
+                e_kl = torch.sum(edges["kl"], dim=(1, 2))
+            else:
+                # the same edge set as an explicit pair list
+                kl_idx, _dist, kl_valid = knn_indices(lig_x, lig_mask, kp_x, kp_mask, self.kl_k)
+                kl_valid = kl_valid & kp_mask[:, :, None]
+                edges["kl_pairs"] = (kl_idx, kl_valid)
+                e_kl = torch.sum(kl_valid, dim=(1, 2))
         else:
             edges["kl"] = dense_radius_adjacency(kp_x, kp_mask, lig_x, lig_mask, self.kl_cutoff)
             edges["lk"] = edges["kl"].transpose(1, 2)

@@ -13,6 +13,7 @@ Parameters carry the flax names and (in, out) layouts.
 """
 from __future__ import annotations
 
+import itertools
 import math
 
 import torch
@@ -24,8 +25,18 @@ from kpdiff_tpu_torch.ops.cuda.egnn_edge import egnn_edge_dense, egnn_edge_dense
 from kpdiff_tpu_torch.ops.neighbors import gather_rows
 
 
+def records_grad(module: nn.Module, *tensors) -> bool:
+    """Whether autograd records a call of `module` on `tensors`: grad enabled
+    and a parameter or input that requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in itertools.chain(module.parameters(), tensors))
+
+
 class _EdgeParams(nn.Module):
-    """Parameter scheme shared by the three EGNN edge modules."""
+    """Parameter scheme shared by the three EGNN edge modules, and their
+    route through the edge kernel's entry (`kernel`), open to those in the
+    dynamics' configuration (`kernel_ok`: two coord hidden layers,
+    coordinates computed, no edge features). Subclasses set `cd`,
+    `use_tanh` and `coords_range`."""
 
     def __init__(self, f_in: int, hidden_size: int, gen: torch.Generator, coord_hidden_layers: int = 2,
                  compute_coord: bool = True, edge_feat_size: int = 0):
@@ -34,6 +45,8 @@ class _EdgeParams(nn.Module):
         self.coord_hidden_layers = coord_hidden_layers
         self.compute_coord = compute_coord
         self.edge_feat_size = edge_feat_size
+        self.kernel_ok = compute_coord and coord_hidden_layers == 2 and edge_feat_size == 0
+        self._pack = None  # (parameter key, kernel weight operands)
         self._first_layer("edge", f_in, h, gen)
         self._linear("edge_lin2", h, h, gen)
         self._linear("attn", h, 1, gen)
@@ -58,6 +71,55 @@ class _EdgeParams(nn.Module):
     def coord_layers(self):
         return [(getattr(self, f"coord_lin{i + 2}_w"), getattr(self, f"coord_lin{i + 2}_b"))
                 for i in range(self.coord_hidden_layers - 1)]
+
+    def _kernel_weights(self):
+        """The kernel's weight operands, converted once and cached until a
+        parameter changes: the first layers' source and destination matrices
+        (and destination biases) of both chains side by side, f32, each
+        zero padded to `row_stride` columns (one product per side writes the
+        kernel's a_* rows of both chains), f32 vectors, and the second
+        layers packed in the compute dtype (`pack_w2`)."""
+        params = tuple(self.parameters())
+        key = (self.cd, tuple((p.data_ptr(), p._version, p.dtype) for p in params))
+        if self._pack is None or self._pack[0] != key:
+            f32 = torch.float32
+
+            def vec(p):
+                return p.detach().reshape(-1).to(f32).contiguous()
+
+            def cols(*ps):
+                return torch.cat([F.pad(p.detach().to(f32), (0, row_stride(p.shape[-1]) - p.shape[-1]))
+                                  for p in ps], dim=-1).contiguous()
+
+            pack = dict(w_src=cols(self.edge_w_src, self.coord_w_src), w_dst=cols(self.edge_w_dst, self.coord_w_dst),
+                        b_dst=cols(self.edge_b, self.coord_b))
+            pack.update(
+                w_edij=vec(self.edge_w_dij[0]), w_cdij=vec(self.coord_w_dij[0]),
+                w2e=pack_w2(self.edge_lin2_w, self.cd), b2e=vec(self.edge_lin2_b),
+                attw=vec(self.attn_w), atb=vec(self.attn_b),
+                w2c=pack_w2(self.coord_lin2_w, self.cd), b2c=vec(self.coord_lin2_b),
+                wout=vec(self.coord_out_w))
+            self._pack = (key, pack)
+        return self._pack[1]
+
+    def kernel(self, h_src, h_dst, x_src, x_dst, adj):
+        """Messages over a dense (B, Ns, Nd) pair grid through the kernel's
+        entry `egnn_edge_dense` (the CUDA kernel on CUDA tensors, its plain
+        version on CPU tensors), forward only: both chains' per-node
+        projections in one f32 product per side, rounded to the compute
+        dtype, then the per-pair work on the active pairs of `adj`.
+        Sources take the first layers' `w_src`, destinations `w_dst`."""
+        f32 = torch.float32
+        w = self._kernel_weights()
+        h = self.edge_b.shape[0]
+        lda = row_stride(h)
+        a_src = (h_src.to(f32) @ w["w_src"]).to(self.cd)
+        a_dst = (h_dst.to(f32) @ w["w_dst"] + w["b_dst"]).to(self.cd)
+        return egnn_edge_dense(
+            a_src[..., :h], a_dst[..., :h], a_src[..., lda:lda + h], a_dst[..., lda:lda + h],
+            w["w_edij"], w["w_cdij"], w["w2e"], w["b2e"], w["attw"], w["atb"],
+            w["w2c"], w["b2c"], w["wout"], x_src.to(f32).contiguous(), x_dst.to(f32).contiguous(),
+            adj.contiguous(), use_tanh=self.use_tanh, coords_range=self.coords_range, compute_dtype=self.cd)
 
 
 def _gate(m, attn_w, attn_b, cd):
@@ -102,65 +164,24 @@ class EGNNEdgeDense(_EdgeParams):
         self.use_tanh = use_tanh
         self.coords_range = float(coords_range)
         self.cd = compute_dtype(dtype)
-        self.kernel_ok = compute_coord and coord_hidden_layers == 2 and edge_feat_size == 0
-        self._pack = None  # (parameter key, kernel weight operands)
-
-    def _kernel_weights(self):
-        """The kernel's weight operands, converted once and cached until a
-        parameter changes: the first layers' source and destination matrices
-        (and destination biases) of both chains side by side, f32, each
-        zero padded to `row_stride` columns (one product per side writes the
-        kernel's a_* rows of both chains), f32 vectors, and the second
-        layers packed in the compute dtype (`pack_w2`)."""
-        params = tuple(self.parameters())
-        key = (self.cd, tuple((p.data_ptr(), p._version, p.dtype) for p in params))
-        if self._pack is None or self._pack[0] != key:
-            f32 = torch.float32
-
-            def vec(p):
-                return p.detach().reshape(-1).to(f32).contiguous()
-
-            def cols(*ps):
-                return torch.cat([F.pad(p.detach().to(f32), (0, row_stride(p.shape[-1]) - p.shape[-1]))
-                                  for p in ps], dim=-1).contiguous()
-
-            pack = dict(w_src=cols(self.edge_w_src, self.coord_w_src), w_dst=cols(self.edge_w_dst, self.coord_w_dst),
-                        b_dst=cols(self.edge_b, self.coord_b))
-            pack.update(
-                w_edij=vec(self.edge_w_dij[0]), w_cdij=vec(self.coord_w_dij[0]),
-                w2e=pack_w2(self.edge_lin2_w, self.cd), b2e=vec(self.edge_lin2_b),
-                attw=vec(self.attn_w), atb=vec(self.attn_b),
-                w2c=pack_w2(self.coord_lin2_w, self.cd), b2c=vec(self.coord_lin2_b),
-                wout=vec(self.coord_out_w))
-            self._pack = (key, pack)
-        return self._pack[1]
 
     def forward(self, h_src, h_dst, x_src, x_dst, adj, edge_feat=None):
         if not self.kernel_ok:
             return self._generic(h_src, h_dst, x_src, x_dst, adj, edge_feat)
+        if not records_grad(self, h_src, h_dst, x_src, x_dst):
+            return self.kernel(h_src, h_dst, x_src, x_dst, adj)
+        # Training: the plain version on the parameters themselves, so
+        # autograd reaches all of them (the JAX package trains through
+        # its XLA path; the kernel is forward-only there and here).
         f32 = torch.float32
         hs, hd = h_src.to(f32), h_dst.to(f32)
-        xs, xd, adj = x_src.to(f32).contiguous(), x_dst.to(f32).contiguous(), adj.contiguous()
-        kw = dict(use_tanh=self.use_tanh, coords_range=self.coords_range, compute_dtype=self.cd)
-        if torch.is_grad_enabled() and any(t.requires_grad for t in (*self.parameters(), h_src, h_dst, x_src, x_dst)):
-            # Training: the plain version on the parameters themselves, so
-            # autograd reaches all of them (the JAX package trains through
-            # its XLA path; the kernel is forward-only there and here).
-            return egnn_edge_dense_plain(
-                hs @ self.edge_w_src, hd @ self.edge_w_dst + self.edge_b,
-                hs @ self.coord_w_src, hd @ self.coord_w_dst + self.coord_b,
-                self.edge_w_dij[0], self.coord_w_dij[0], self.edge_lin2_w, self.edge_lin2_b,
-                self.attn_w[:, 0], self.attn_b, self.coord_lin2_w, self.coord_lin2_b, self.coord_out_w[:, 0],
-                xs, xd, adj, **kw)
-        w = self._kernel_weights()
-        h = self.edge_b.shape[0]
-        lda = row_stride(h)
-        # both chains' per-node projections in one f32 product per side, rounded to the compute dtype
-        a_src, a_dst = (hs @ w["w_src"]).to(self.cd), (hd @ w["w_dst"] + w["b_dst"]).to(self.cd)
-        return egnn_edge_dense(
-            a_src[..., :h], a_dst[..., :h], a_src[..., lda:lda + h], a_dst[..., lda:lda + h],
-            w["w_edij"], w["w_cdij"], w["w2e"], w["b2e"], w["attw"], w["atb"],
-            w["w2c"], w["b2c"], w["wout"], xs, xd, adj, **kw)
+        return egnn_edge_dense_plain(
+            hs @ self.edge_w_src, hd @ self.edge_w_dst + self.edge_b,
+            hs @ self.coord_w_src, hd @ self.coord_w_dst + self.coord_b,
+            self.edge_w_dij[0], self.coord_w_dij[0], self.edge_lin2_w, self.edge_lin2_b,
+            self.attn_w[:, 0], self.attn_b, self.coord_lin2_w, self.coord_lin2_b, self.coord_out_w[:, 0],
+            x_src.to(f32).contiguous(), x_dst.to(f32).contiguous(), adj.contiguous(),
+            use_tanh=self.use_tanh, coords_range=self.coords_range, compute_dtype=self.cd)
 
     def _generic(self, h_src, h_dst, x_src, x_dst, adj, edge_feat=None):
         """The JAX package's dense XLA path (no split t-channel): pair
@@ -193,7 +214,15 @@ class EGNNEdgeKNNPairs(_EdgeParams):
     """EGNN edge math over a kNN pair list anchored at one node set
     (kpdiff_tpu/models/egnn.py:329-531): idx (B, K, k) indexes the other set.
     anchor_is_src=True (kl): the anchor sends, messages land on the gathered
-    nodes; False (lk): the gathered nodes send to the anchor."""
+    nodes; False (lk): the gathered nodes send to the anchor.
+
+    `forward` is the pair list in plain PyTorch (training, the CPU). Where
+    the edge kernel is taken (CUDA tensors, no autograd recording) the
+    dynamics hands the same edge set to `kernel` as a dense mask instead
+    (models/dynamics_egnn.py): kl (B, K, Nl) with the anchor as source, lk
+    its transpose with the anchor as destination. Either way the anchor
+    takes `w_src` for kl and `w_dst` for lk, as EGNNEdgeDense's sources and
+    destinations do."""
 
     def __init__(self, f_in: int, hidden_size: int, gen: torch.Generator, anchor_is_src: bool,
                  use_tanh: bool = False, coords_range: float = 10.0, dtype: str = "float32"):

@@ -289,6 +289,12 @@ def egnn_edge_dense_plain(a_es, a_ed, a_cs, a_cd, w_edij, w_cdij, w2e, b2e, attw
     return agg_h, agg_x
 
 
+def kernel_device(device: torch.device) -> bool:
+    """Whether `egnn_edge_dense` launches the kernel on tensors of `device`
+    (CUDA) rather than running the plain version (CPU)."""
+    return device.type == "cuda"
+
+
 def _check(name, t, shape, dtype, device):
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
@@ -350,7 +356,7 @@ def egnn_edge_dense(a_es, a_ed, a_cs, a_cd, w_edij, w_cdij, w2e, b2e, attw, atb,
     if a_es.device.type not in ("cpu", "cuda"):
         raise ValueError(f"egnn_edge_dense runs on CUDA or CPU tensors, got {a_es.device}")
     lda = _check_operands(args, compute_dtype)
-    if a_es.device.type == "cpu":
+    if not kernel_device(a_es.device):
         return egnn_edge_dense_plain(*args, use_tanh=use_tanh, coords_range=coords_range,
                                      compute_dtype=compute_dtype)
     out = _launch(False, args, lda, use_tanh, coords_range, compute_dtype)

@@ -166,9 +166,16 @@ def train_profile(args):
         Path(args.out).write_text("\n".join(report) + "\n")
 
 
-def _edge_key(role, a):
-    """ll or kk (the EGNNEdgeDense module running, `role`), with the kernel's (Ns x Nd) shape."""
-    return f"{role['now']}{a[0].shape[1]}x{a[1].shape[1]}"
+def _edge_key(role, a, n_kp):
+    """The edge set with the kernel's (Ns x Nd) shape: the EGNNEdgeDense
+    module running (`role`), or for the kNN kl / lk masks, which run no
+    EGNNEdgeDense after edge_ll, the side that holds the keypoints (ll's
+    grid is square)."""
+    ns, nd = a[0].shape[1], a[1].shape[1]
+    name = role["now"]
+    if name == "ll" and ns != nd:
+        name = "kl" if ns == n_kp else "lk"
+    return f"{name}{ns}x{nd}"
 
 
 def main():
@@ -196,7 +203,7 @@ def main():
     n_rec_feat, n_lig_feat, _ = resolve_feature_sizes(cfg)
     report = [f"{torch.cuda.get_device_name(0)}; {args.config}; weights "
               f"{args.params or 'random seed 0'}; batch {BATCH}; {STEPS} steps"]
-    role = {}  # which dense edge module (edge_ll or edge_kk) is running: 'll' or 'kk'
+    role = {}  # which dense edge module (edge_ll, edge_kk, or a radius edge_kl / edge_lk) is running
     for name, mod in model.named_modules():
         if isinstance(mod, egnn_mod.EGNNEdgeDense):
             mod.register_forward_pre_hook(lambda m, a, r=name.rsplit(".", 1)[-1][-2:]: role.update(now=r))
@@ -213,7 +220,7 @@ def main():
         captured = {}  # the edge kernel's inputs, first launch at each shape
 
         def recording(*a, **kw):
-            captured.setdefault(_edge_key(role, a), (egnn_edge.snapshot_args(a), kw))
+            captured.setdefault(_edge_key(role, a, pad.n_kp), (egnn_edge.snapshot_args(a), kw))
             return real(*a, **kw)
 
         real = egnn_mod.egnn_edge_dense
@@ -226,7 +233,7 @@ def main():
         chain = []  # (shape key, adj) of every edge-kernel launch in the profiled steps
 
         def listing(*a, **kw):
-            chain.append((_edge_key(role, a), a[15]))
+            chain.append((_edge_key(role, a, pad.n_kp), a[15]))
             return real(*a, **kw)
 
         egnn_mod.egnn_edge_dense = listing

@@ -23,3 +23,7 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running tests (full suite >40 min on the CPU "
         "platform); deselect with -m 'not slow' for a <5 min gate")
+    config.addinivalue_line(
+        "markers", "card: needs an NVIDIA card (the CUDA edge kernel has no CPU mode); skips "
+        "without one. On the card, where JAX is absent: python3 -m pytest --noconftest -m card "
+        "tests/test_torch_port_kl_route.py")

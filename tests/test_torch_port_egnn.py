@@ -17,6 +17,7 @@ import torch
 from kpdiff_tpu.models import egnn as jegnn
 from kpdiff_tpu_torch.models import egnn as tegnn
 from kpdiff_tpu_torch.ops.cuda import egnn_edge
+from kpdiff_tpu_torch.ops.neighbors import dense_knn_adjacency, knn_indices
 from torch_port_util import assert_close, assert_rel_max, jax_flat, load_from_jax, t
 
 F32 = dict(rtol=1e-4, atol=1e-5)
@@ -112,6 +113,55 @@ def test_knn_pairs_matches_jax(anchor_is_src, dtype):
     with torch.no_grad():
         got = tmod(t(h_a), t(h_o), t(x_a), t(x_o), t(idx, torch.int64), t(valid))
     _check(got, want, dtype, f"anchor_is_src={anchor_is_src}")
+
+
+def _kl_case(case, B=2, K=8, N=9, F=24, seed=9):
+    """Keypoint and ligand inputs of the kNN kl / lk edges with their masks."""
+    rng = np.random.default_rng(seed)
+    h_kp, h_lig = (t(rng.normal(size=(B, n, F)).astype(np.float32)) for n in (K, N))
+    x_kp, x_lig = (t((rng.normal(size=(B, n, 3)) * 2).astype(np.float32)) for n in (K, N))
+    kp_mask, lig_mask = torch.ones(B, K, dtype=torch.bool), torch.ones(B, N, dtype=torch.bool)
+    if case in ("kp_masked", "kp_shard"):
+        kp_mask[0, 5:] = False
+        kp_mask[1, :2] = False
+    if case == "few_ligand_atoms":
+        lig_mask[0, 2:] = False  # 2 valid atoms, kl_k 3
+        lig_mask[1, 4:] = False
+    return h_kp, h_lig, x_kp, x_lig, kp_mask, lig_mask
+
+
+@pytest.mark.parametrize("case", ["all_valid", "kp_masked", "few_ligand_atoms", "kp_shard"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("anchor_is_src", [True, False], ids=["kl", "lk"])
+def test_knn_mask_route_matches_the_pair_list(anchor_is_src, dtype, case):
+    """The kNN edge set as a dense mask through the kernel's entry
+    (`kernel`: its plain version on the CPU) against
+    EGNNEdgeKNNPairs.forward's pair list on the same parameters: f32 within
+    1e-5; bf16 against the pair list in f32 within 2e-2 of scale (the two
+    bf16 routes round at different places, each about 1% from f32 here, so
+    their distance can reach twice that). kp_shard: each half of the
+    keypoint rows builds its own mask, as a kp-sharded rank does; the
+    halves' kl messages into the ligand are summed, their lk rows joined."""
+    k, F = 3, 24
+    h_kp, h_lig, x_kp, x_lig, kp_mask, lig_mask = _kl_case(case, F=F)
+    mod, ref = (tegnn.EGNNEdgeKNNPairs(F, F, torch.Generator().manual_seed(11), anchor_is_src=anchor_is_src,
+                                       use_tanh=True, dtype=d) for d in (dtype, "float32"))
+    rows = [slice(0, 4), slice(4, 8)] if case == "kp_shard" else [slice(None)]
+    with torch.no_grad():
+        idx, _, valid = knn_indices(x_lig, lig_mask, x_kp, kp_mask, k)
+        want = ref(h_kp, h_lig, x_kp, x_lig, idx, valid & kp_mask[:, :, None])
+        parts = []
+        for r in rows:
+            adj = dense_knn_adjacency(x_kp[:, r], kp_mask[:, r], x_lig, lig_mask, k, per="src")
+            parts.append(mod.kernel(h_kp[:, r], h_lig, x_kp[:, r], x_lig, adj) if anchor_is_src
+                         else mod.kernel(h_lig, h_kp[:, r], x_lig, x_kp[:, r], adj.transpose(1, 2)))
+    got = [sum(p[i] for p in parts) if anchor_is_src else torch.cat([p[i] for p in parts], dim=1)
+           for i in range(2)]
+    for g, w, part in zip(got, want, ("agg_h", "agg_x")):
+        if dtype == "float32":
+            assert_close(g, w, rtol=1e-5, atol=1e-5, msg=f"{case} {part}")
+        else:
+            assert_rel_max(g, w, BF16_REL, msg=f"{case} {part}")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
