@@ -776,9 +776,9 @@ def serve_phase(run, cfg, pdb, sdf, seed, tmp):
     real_run = sampler._run
 
     def checked_run(cpx, init_com):  # every chunk: finite coordinates, one ligand of each drawn size
-        out, layout = real_run(cpx, init_com)
+        out, *rest = real_run(cpx, init_com)
         outs.append((out["lig_mask"].sum(1).tolist(), bool(torch.isfinite(out["lig_x"]).all())))
-        return out, layout
+        return (out, *rest)
 
     sampler._run = checked_run
     rows, paths = {}, {}

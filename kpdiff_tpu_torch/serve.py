@@ -26,7 +26,10 @@ serve.compact_kk and serve.chain), serve.readback (the wait for the
 device), serve.decode and serve.build; `last_request`'s seconds are those spans' durations. Counters
 (serve.*): rows asked and run (repeat-padding), real ligand atom-steps and
 slot atom-steps (rows x bucket x chain steps), chunks by kk layout, kk cap
-grows, ligands decoded and built.
+grows, a kk neighbor list's slots (rows x keypoints x cap x chain steps) and
+its valid edges among them (x chain steps; summed on the device and read
+after the readback's sync, so a dense kk adds no sync), ligands decoded and
+built.
 
 `kp_shard_devices=n > 1` splits every chunk's keypoints over n devices, one
 rank each (parallel/kp_shard.py): rank 0 holds the requests and the front
@@ -236,7 +239,9 @@ class KeypointSampler:
     @torch.no_grad()
     def _run(self, cpx, init_com):
         """Encode, compact kk and sample under no_grad, so that every dense
-        edge takes the CUDA kernel. Returns the outputs and the kk layout."""
+        edge takes the CUDA kernel. Returns the outputs, the kk layout and,
+        for a kk neighbor list, (its slots, its valid edges summed on the
+        device), else None."""
         with profiling.span("serve.encode"):
             enc, kk = self.model.encode(cpx)
         self.last_keypoints = (enc.kp_x[0], enc.kp_mask[0])  # the pocket's keypoints, for keypoints.xyz
@@ -252,7 +257,9 @@ class KeypointSampler:
             else:
                 self._bcast(_to_device((enc, kk, init_com), "cpu"))
                 out = self._sample_sharded(enc, kk, init_com)
-        return out, (f"nbr{int(kk[0].shape[-1])}" if isinstance(kk, tuple) else "dense")
+        if isinstance(kk, tuple):
+            return out, f"nbr{int(kk[0].shape[-1])}", (kk[1].numel(), torch.sum(kk[1]))
+        return out, "dense", None
 
     # ------------------------------------------------------------------ API
 
@@ -336,7 +343,7 @@ class KeypointSampler:
                         com = torch.as_tensor(np.broadcast_to(np.asarray(init_com, np.float32),
                                                               (self.batch_size, 3)).copy(), device=self.device)
                 with profiling.span("serve.sample") as sample:  # encode, compact_kk and chain
-                    out, layout = self._run(cpx, com)
+                    out, layout, kk_nbr = self._run(cpx, com)
                 with profiling.span("serve.readback") as readback:
                     self._sync()
                 with profiling.span("serve.decode") as decode:
@@ -356,6 +363,9 @@ class KeypointSampler:
                                 ("slot_atom_steps", self.batch_size * bucket * chain_steps),
                                 ("ligands_decoded", len(ligands))):
                     profiling.count(f"serve.{name}", n)
+                if kk_nbr is not None:  # read after the readback's sync
+                    profiling.count("serve.kk_nbr_slots", kk_nbr[0] * chain_steps)
+                    profiling.count("serve.kk_nbr_edges", int(kk_nbr[1]) * chain_steps)
                 done += bs
             profiling.count("serve.ligands_built", len(mols))
             self.last_request = stats

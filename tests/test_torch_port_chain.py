@@ -316,9 +316,9 @@ def test_sampler_chunks_repeat_padded_as_jax(tiny_run, monkeypatch, ligand_size)
     runs, real = [], sampler._run
 
     def spy(cpx, init_com):
-        out, layout = real(cpx, init_com)
+        out, *rest = real(cpx, init_com)
         runs.append((cpx, init_com, out))
-        return out, layout
+        return (out, *rest)
 
     monkeypatch.setattr(sampler, "_run", spy)
     decoded = []

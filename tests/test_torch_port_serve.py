@@ -99,9 +99,9 @@ def _spy_runs(sampler, monkeypatch):
     runs, real = [], sampler._run
 
     def spy(cpx, init_com):
-        out, layout = real(cpx, init_com)
+        out, *rest = real(cpx, init_com)
         runs.append((cpx, init_com, out))
-        return out, layout
+        return (out, *rest)
 
     monkeypatch.setattr(sampler, "_run", spy)
     return runs
