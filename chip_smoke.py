@@ -112,8 +112,8 @@ Phases, each timed on its own line; any failure raises (non-zero exit):
      share) with the edge kernel's rows counted (24 a step, equal to the
      launches captured times the replays); the trained gvp_40kp at bucket
      48 the same way (K=50); and the profiled launches of graph chains on
-     the other layouts (egnn_ca on compact_kk's list, 18 a step; the
-     flagship with kl_k 0, 24 a step).
+     the other layouts (egnn_ca on compact_kk's list, its mask 24 a step;
+     the flagship with kl_k 0, 24 a step).
  13. train graphs: the optimizer step and the held-out loss as captured
      CUDA graphs against eager, on the trained flagship at batch 64 with
      phase 6's first 10 batches (two ligand buckets alternating) and
@@ -141,11 +141,10 @@ B <= 32 also carry `profiler_ms`, read from
 torch.profiler's kernel rows at the end of the run, since the profiler slows
 every launch that follows it.
 Every sampling path is held to its kernel launch count (ChainLog): for EGNN,
-n_layers launches per reverse step for ll, as many again for kk while it is
-dense or in blocks, and as many again for kl and, with update_kp_feat, for
-lk (the kNN mask, or the radius grid with kl_k 0): 24 a flagship step, 18
-where compact_kk gives a neighbor list; none for GVP, whose messages run in
-plain PyTorch. Sampling replays a
+n_layers launches per reverse step for ll, as many again for kl and, with
+update_kp_feat, for lk (the kNN mask, or the radius grid with kl_k 0) and for
+kk (dense, in blocks, or the mask of compact_kk's neighbor list): 24 an
+EGNN step; none for GVP, whose messages run in plain PyTorch. Sampling replays a
 captured CUDA graph of the reverse step by default: the first chain of a
 shape runs its first step eagerly (its launches counted as they are made)
 and captures the step (the wrapper counts the calls it records in
@@ -608,7 +607,7 @@ def train_phase(params_path, seed, dev):
         ev_plain = evaluate(model, fixed, dev, torch.Generator(device=dev).manual_seed(seed + 9), cuda_graph=False)
     finally:
         egnn_mod.egnn_edge_dense = real
-    per_batch = launches_per_step(model, None)  # the loss's kk is dense
+    per_batch = launches_per_step(model)
     want = per_batch * len(eval_batches)
     eval_err = {k: _rel(ev_kernel[k], ev_plain[k]) for k in ev_plain}
     print(f"train eval: {len(eval_batches)} held-out batches (buckets "
@@ -657,17 +656,16 @@ def kk_layout(kk) -> str:
     return "block" if isinstance(kk, dict) else f"nbr{int(kk[0].shape[-1])}" if isinstance(kk, tuple) else "dense"
 
 
-def launches_per_step(model, kk) -> int:
+def launches_per_step(model) -> int:
     """Edge-kernel launches of one reverse step (or held-out loss) under
-    no_grad on the card: n_layers for ll, as many again for kk while it is
-    dense or in blocks (EGNN with update_kp_feat), and as many again for kl
-    (the kNN mask, or the radius grid with kl_k 0) and, with update_kp_feat,
-    for lk; none for GVP, whose messages run in plain PyTorch."""
+    no_grad on the card: n_layers for ll, as many again for kl (the kNN
+    mask, or the radius grid with kl_k 0) and, with update_kp_feat, for lk
+    and for kk (dense, in blocks, or a neighbor list's mask); none for GVP,
+    whose messages run in plain PyTorch."""
     if model.gvp:
         return 0
     dyn = model.dynamics
-    kp = int(dyn.update_kp_feat)
-    return dyn.n_layers * (2 + kp + int(kp and not isinstance(kk, tuple)))
+    return dyn.n_layers * (2 + 2 * int(dyn.update_kp_feat))
 
 
 class ChainLog:
@@ -682,7 +680,7 @@ class ChainLog:
         def logged(model, cpx, kk, *a, **kw):
             steps = kw.get("sample_steps") or 0
             n = steps if 0 < steps < model.cfg.n_timesteps else model.cfg.n_timesteps
-            log.append(dict(steps=n, kk=kk_layout(kk), per_step=launches_per_step(model, kk),
+            log.append(dict(steps=n, kk=kk_layout(kk), per_step=launches_per_step(model),
                             batch=int(cpx.lig_x.shape[0]), bucket=int(cpx.lig_x.shape[1])))
             return real(model, cpx, kk, *a, **kw)
 
@@ -1754,7 +1752,7 @@ def parallel_sample(params_path, seed, dev):
           f"unsharded chain's {len(step_errs)} states: max_rel_err {worst:.3e} (tolerance {TOL[torch.bfloat16]:.0e}; "
           f"the unsharded dynamics again on them: {replay:.3e}); free chains' lig_x max_rel_diff {free:.3e} "
           f"(reported)", flush=True)
-    if sh_run["launches"] != u["launches"] or u["launches"] != launches_per_step(model, kk) * PAR_K:
+    if sh_run["launches"] != u["launches"] or u["launches"] != launches_per_step(model) * PAR_K:
         raise RuntimeError(f"parallel sample: launches sharded {sh_run['launches']}, unsharded {u['launches']}")
     if len(step_errs) != PAR_K or not worst <= TOL[torch.bfloat16]:
         raise RuntimeError(f"parallel sample: {len(step_errs)} states, max_rel_err {worst:.3e}")
@@ -1907,7 +1905,7 @@ def graph_chain_record(model, enc, kk, gen, label, steps, batch, check_at, tol):
     for o in (out, out_e):
         if not all(torch.isfinite(o[k]).all() for k in ("lig_x", "lig_h")):
             raise RuntimeError(f"{label}: a chain's output is not finite")
-    per_step = launches_per_step(model, kk)
+    per_step = launches_per_step(model)
     if g_launches != e_launches or g_launches != per_step * steps or graphs.last.launches != per_step:
         raise RuntimeError(f"{label}: launches graph {g_launches}, eager {e_launches}, captured "
                            f"{graphs.last.launches} a replay; expected {per_step} a step")
@@ -1942,7 +1940,7 @@ def graph_profiles(model, enc, kk, gen, label, rec, steps=GRAPH_PROFILE_STEPS):
         out[mode] = dict(wall_ms_per_step=wall / steps * 1e3, device_ms_per_step=device / steps * 1e3,
                          busy=device / wall, kernels_per_step=kernels / steps, edge_launches=edge)
     replays = entry.replays - r0
-    want = launches_per_step(model, kk) * steps
+    want = launches_per_step(model) * steps
     g, e = out["graph"], out["eager"]
     print(f"graph {label} profile, {steps} steps: graph wall {g['wall_ms_per_step']:.3f} / device "
           f"{g['device_ms_per_step']:.3f} ms/step, busy {g['busy']:.3f}, {g['kernels_per_step']:.0f} kernels/step; "
@@ -2018,8 +2016,8 @@ def graph_phase(params_path, seed, dev):
     rec["gvp_40kp"] = graph_chain_record(gvp, genc, gkk, ggen, "gvp_40kp bucket 48", GVP_GRAPH_K, BATCH,
                                          (0, 1, GVP_GRAPH_K - 1), GRAPH_TOL[gvp.cd])
 
-    # graph chains of the other edge layouts: egnn_ca on compact_kk's list (18 launches a step, seeded
-    # weights), the flagship with kl_k 0 (24 a step)
+    # graph chains of the other edge layouts: egnn_ca on compact_kk's list (its mask, 24 launches a
+    # step, seeded weights), the flagship with kl_k 0 (24 a step)
     layouts = {}
     ca_cfg = load_config("configs/egnn_ca.yml")
     ca_pad = PaddingConfig.from_config(ca_cfg)
@@ -2052,7 +2050,7 @@ def graph_phase(params_path, seed, dev):
         entry = m.chain_graphs.last
         r0 = entry.replays
         _, _, _, edge = profiled(lambda: m.sample(e, k, sample_steps=5, generator=g))
-        want = launches_per_step(m, k) * 5
+        want = launches_per_step(m) * 5
         layouts[label] = dict(kk=kk_layout(k), profiled_edge_launches=edge, expected=want,
                               captured=entry.launches, replays=entry.replays - r0)
         print(f"graph layout {label} (kk {kk_layout(k)}): 5 replays, {edge} edge-kernel rows in the profile, "
@@ -2236,7 +2234,7 @@ def train_graph_phase(params_path, seed, dev, batches, eval_batches, iters_per_e
             ev_plain = evaluate(gm, fixed, dev, torch.Generator(device=dev).manual_seed(seed + 9), cuda_graph=False)
         finally:
             egnn_mod.egnn_edge_dense = real
-        per_batch = launches_per_step(gm, None)  # the loss's kk is dense
+        per_batch = launches_per_step(gm)
         ev_err = {k: _rel(ev_graph[k], ev_plain[k]) for k in ev_plain}
         replays = sum(e.replays for e in entries)
         r["eval"] = dict(batches=len(eval_batches), launches=ev_launches, graphs=len(entries),
@@ -2407,7 +2405,7 @@ def main():
             torch.cuda.synchronize()
             dt = time.perf_counter() - t1
             launches = egnn_edge.launches
-            want = launches_per_step(model, kk) * STEPS
+            want = launches_per_step(model) * STEPS
             for k, shape in (("lig_x", (BATCH, n_lig, 3)), ("lig_h", (BATCH, n_lig, 10))):
                 if tuple(out[k].shape) != shape or not torch.isfinite(out[k]).all():
                     raise RuntimeError(f"bucket {n_lig}: {k} has shape {tuple(out[k].shape)} or is not finite")
@@ -2472,7 +2470,7 @@ def main():
           flush=True)
     if not chain_step_err <= TOL[torch.bfloat16]:
         raise RuntimeError(f"a launch in the 10-step chain differs from the plain version: {chain_step_err:.3e}")
-    if len(step_errs) != launches_per_step(model, kk) * K10:
+    if len(step_errs) != launches_per_step(model) * K10:
         raise RuntimeError(f"the 10-step chain made {len(step_errs)} kernel calls")
     del encoded
     phase("slice", t0)

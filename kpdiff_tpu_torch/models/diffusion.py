@@ -192,7 +192,11 @@ class KeypointDiffusion(nn.Module):
         smaller layout when the max degree rounded up to `align` is below K;
         a dense adjacency unchanged otherwise. A block layout always becomes
         the exact radius graph's neighbor list (the block layout only covers
-        the edges within its windows). `min_cap` pins a grow-only cap."""
+        the edges within its windows). `min_cap` pins a grow-only cap.
+        The list is what serving counts (serve.kk_nbr_slots / _edges); the
+        EGNN dynamics run it as its dense (B, K, K) mask through the edge
+        kernel where the kernel is taken, as the list elsewhere
+        (models/dynamics_egnn.py)."""
         if isinstance(kk, tuple):
             return kk
         r = self._kk_cutoff()

@@ -4,13 +4,7 @@ Ligand-ligand edges are a dense grid, the radius graph or, with ll_k > 0,
 each ligand atom's ll_k nearest ligand atoms. Keypoint-ligand edges are,
 with kl_k > 0, each keypoint's kl_k nearest ligand atoms and, with
 kl_k == 0, the dense radius grid (B, K, Nl) on the kl cutoff, lk its
-transpose. The kNN edges are a dense (B, K, Nl) mask (lk its transpose)
-where the edge kernel is taken (CUDA tensors, nothing recording autograd:
-`kl_on_kernel`), and a pair list (idx, valid) elsewhere (training, the
-CPU), where a dense plain version would do the whole grid's pair work; the
-two carry the same edge set. The counters dynamics.kl_route_kernel and
-dynamics.kl_route_pairs (utils/profiling.py) count the kNN kl and lk module
-calls by route. All edges are rebuilt from current positions on every call;
+transpose. All edges are rebuilt from current positions on every call;
 the kk edge structure comes in from the encoder, dense (B, K, K), a neighbor list
 (idx, valid) or blocks (below). The timestep is appended as a feature
 channel, so the working width is hidden_nf + 1. The kk structure may also
@@ -19,12 +13,26 @@ spatially sorted keypoints (kk_layout 'block', the all-atom configs): each
 tile of `tile` destinations against the 3 * tile sources of its window,
 reshaped to a dense (B * nt, 3 * tile, tile) grid.
 
+Two edge sets change form with the route (`on_kernel`: CUDA tensors,
+nothing recording autograd). Where the edge kernel is taken, the kNN kl
+edges are a dense (B, K, Nl) mask (lk its transpose) and a kk neighbor
+list is scattered once a call into a dense (B, K, K) mask
+(`neighbor_list_adjacency`) that edge_kk takes; elsewhere (training, the
+CPU, where a dense plain version would do the whole grid's pair work) they
+stay a pair list (idx, valid) for EGNNEdgeKNNPairs and a neighbor list for
+kk_nbr. Each pair of forms carries the same edge set, and message_norm's
+kk edge count is read from the list's `valid` on both routes. The counters
+dynamics.kl_route_kernel / dynamics.kl_route_pairs (kNN kl and lk module
+calls) and dynamics.kk_route_kernel / dynamics.kk_route_list (kk module
+calls of a neighbor-list kk; a dense or block kk counts on neither) in
+utils/profiling.py count the calls by route.
+
 Every dense edge grid (ll, kl and lk while dense or a kNN mask, kk while
-dense, and the block windows) goes through the CUDA edge kernel under
-no_grad, as the JAX package's sampler does with
+dense, a neighbor list's mask or the block windows) goes through the CUDA
+edge kernel under no_grad, as the JAX package's sampler does with
 `dynamics.use_pallas_sampling` for ll, dense kl, lk and dense kk; the JAX
-package's kNN pairs and block branch never take its Pallas kernel, the
-port's do. The kl and lk modules are named `edge_kl` and `edge_lk`
+package's kNN pairs, kk neighbor list and block branch never take its
+Pallas kernel, the port's do. The kl and lk modules are named `edge_kl` and `edge_lk`
 under either layout, with the same parameters, so one archive loads under
 both. While autograd records they take the kernel's plain version. `remat`
 recomputes each conv layer in the backward pass (torch.utils.checkpoint),
@@ -34,9 +42,10 @@ With `kp_shard` (parallel/kp_shard.py::ShardContext) the keypoint tensors
 are this rank's rows: kl messages into the replicated ligand are partial
 over the rank's keypoint sources and summed over the 'model' group, kk
 takes every keypoint as a source (gathered h and x; a dense kk arrives as
-(B, K, K/n), a neighbor list indexes the global rows, the block layout
-runs on the gathered keypoints and keeps its rows), lk and the keypoint
-update stay local, and the message_norm 0 counts are summed over the group.
+(B, K, K/n), a neighbor list indexes the global rows and its mask is
+(B, K, K/n) too, the block layout runs on the gathered keypoints and keeps
+its rows), lk and the keypoint update stay local, and the message_norm 0
+counts are summed over the group.
 """
 from __future__ import annotations
 
@@ -49,7 +58,8 @@ from torch.utils.checkpoint import checkpoint
 from kpdiff_tpu_torch.models.egnn import EGNNEdgeDense, EGNNEdgeKNNPairs, EGNNEdgeNbrList, NodeUpdate, records_grad
 from kpdiff_tpu_torch.models.nn import MLP
 from kpdiff_tpu_torch.ops.cuda.egnn_edge import kernel_device
-from kpdiff_tpu_torch.ops.neighbors import dense_knn_adjacency, dense_radius_adjacency, knn_indices
+from kpdiff_tpu_torch.ops.neighbors import (dense_knn_adjacency, dense_radius_adjacency, knn_indices,
+                                            neighbor_list_adjacency)
 from kpdiff_tpu_torch.ops.spatial import block_windows
 from kpdiff_tpu_torch.utils import profiling
 from kpdiff_tpu_torch.utils.profiling import device_mark
@@ -58,7 +68,9 @@ from kpdiff_tpu_torch.utils.profiling import device_mark
 class EGNNConvLayer(nn.Module):
     """One heterograph EGNN layer: dense ll, kl as kNN pairs or a dense grid
     (a radius grid with dense_kl, or the kNN mask on the kernel's route), and
-    lk, kk with update_kp_feat."""
+    lk, kk with update_kp_feat. On the kernel's route the dynamics hands a
+    neighbor-list kk in as its dense mask, which goes to edge_kk; kk_nbr
+    takes the list elsewhere."""
 
     def __init__(self, hidden_size: int, gen: torch.Generator, use_tanh: bool, update_kp_feat: bool,
                  norm: bool, dtype: str = "float32", dense_kl: bool = False):
@@ -77,8 +89,9 @@ class EGNNConvLayer(nn.Module):
         self.edge_kl = kl_module(True)
         if update_kp_feat:
             self.edge_lk = kl_module(False)
-            # kk dispatches on its structure: a dense adjacency goes to edge_kk,
-            # a neighbor list to kk_nbr, which shares edge_kk's parameters
+            # kk dispatches on its structure: a dense adjacency (or a neighbor list's mask)
+            # and the block windows go to edge_kk, a neighbor list to kk_nbr, which shares
+            # edge_kk's parameters
             self.edge_kk = EGNNEdgeDense(h, h, gen, **dense)
             self.kk_nbr = EGNNEdgeNbrList(h, h, gen, use_tanh=use_tanh, dtype=dtype)
             for name, p in self.edge_kk.named_parameters():
@@ -195,11 +208,11 @@ class EGNNDynamics(nn.Module):
             mods += [getattr(conv, n) for n in ("edge_kl", "edge_lk", "edge_kk", "update_kp") if hasattr(conv, n)]
         return mods
 
-    def kl_on_kernel(self, *inputs) -> bool:
-        """Whether the kNN kl and lk edges of a call on `inputs` go through
-        the edge kernel as a dense mask: the tensors where the kernel runs
-        (CUDA) and nothing recording autograd. The kNN modules are always in
-        the kernel's configuration (EGNNEdgeKNNPairs)."""
+    def on_kernel(self, *inputs) -> bool:
+        """Whether the kNN kl and lk edges and a neighbor-list kk of a call on
+        `inputs` go through the edge kernel as dense masks: the tensors where
+        the kernel runs (CUDA) and nothing recording autograd. The kNN modules
+        and edge_kk are always in the kernel's configuration."""
         return kernel_device(inputs[0].device) and not records_grad(self, *inputs)
 
     def forward(self, lig_x, lig_h, lig_mask, kp_x, kp_h, kp_mask, t, kk_edges=None, kp_shard=None):
@@ -219,8 +232,8 @@ class EGNNDynamics(nn.Module):
         else:
             ll = dense_radius_adjacency(lig_x, lig_mask, lig_x, lig_mask, self.ll_cutoff, exclude_self=True)
         edges: Dict[str, object] = {"ll": ll}
+        on_kernel = self.on_kernel(lig_x, lig_h, kp_x, kp_h, t)
         if self.kl_k > 0:
-            on_kernel = self.kl_on_kernel(lig_x, lig_h, kp_x, kp_h, t)
             profiling.count("dynamics.kl_route_kernel" if on_kernel else "dynamics.kl_route_pairs",
                             self.n_layers * (1 + int(self.update_kp_feat)))
             if on_kernel:
@@ -242,6 +255,12 @@ class EGNNDynamics(nn.Module):
             if kk_edges is None:
                 raise ValueError("kk_edges required when update_kp_feat=True")
             edges["kk"] = kk_edges
+            if isinstance(kk_edges, tuple):
+                profiling.count("dynamics.kk_route_kernel" if on_kernel else "dynamics.kk_route_list",
+                                self.n_layers)
+                if on_kernel:
+                    # sources are every keypoint (a rank's list indexes the global rows): (B, K, K / n)
+                    edges["kk"] = neighbor_list_adjacency(*kk_edges, k if sh is None else k * sh.size)
 
         z = {}
         if self.message_norm == 0 and self.z_semantics == "executed":
@@ -254,7 +273,7 @@ class EGNNDynamics(nn.Module):
             z["lig"] = (e_lig / n_lig + 1.0)[:, None, None]
             if self.update_kp_feat:
                 n_kp = torch.sum(kp_mask, dim=1)
-                kk = edges["kk"]
+                kk = kk_edges  # a neighbor list counts its valid slots on either route
                 if isinstance(kk, dict):  # whole on every rank
                     e_kk = torch.sum(kk["block"], dim=(1, 2, 3))
                 else:

@@ -282,7 +282,13 @@ class EGNNEdgeKNNPairs(_EdgeParams):
 class EGNNEdgeNbrList(_EdgeParams):
     """EGNN edge math over a destination-major neighbor list
     (kpdiff_tpu/models/egnn.py:534-686): nbr_idx (B, Nd, K) into the sources,
-    aggregation is a masked sum over K."""
+    aggregation is a masked sum over K, in plain PyTorch.
+
+    The dynamics' kk_nbr runs it in training and on the CPU. Where the edge
+    kernel is taken (CUDA tensors, no autograd recording) the dynamics
+    scatters the same list into a dense (B, Ns, Nd) mask for edge_kk, whose
+    parameters kk_nbr shares (models/dynamics_egnn.py). The learned EGNN
+    encoder's neighbor-list layout runs it on every device."""
 
     def __init__(self, f_in: int, hidden_size: int, gen: torch.Generator, use_tanh: bool = False,
                  coords_range: float = 10.0, coord_hidden_layers: int = 2, compute_coord: bool = True,

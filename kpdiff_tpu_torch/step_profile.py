@@ -1,12 +1,12 @@
 """Where the port's reverse-diffusion and training steps spend their time on the card.
 
     python3 -m kpdiff_tpu_torch.step_profile [--config YML] [--buckets 16 32 48] [--params NPZ] [--own_kk]
-                                             [--out FILE]
+                                             [--batch N] [--out FILE]
     python3 -m kpdiff_tpu_torch.step_profile --train [--graph] [--config YML] [--params NPZ] [--out FILE]
 
 Builds --config (default configs/egnn_40kp.yml; any family of configs/) at
 full width and depth (seeded random weights unless --params names a keystr
-npz), encodes a synthetic batch of 128 pockets per ligand bucket, compacts kk as
+npz), encodes a synthetic batch of --batch pockets (default 128) per ligand bucket, compacts kk as
 the samplers do (--own_kk keeps the encoder's dense or block kk), and runs
 10 strided sampling steps under torch.profiler, eagerly (cuda_graph=False:
 the step's kernels launched one by one, as the per-launch listing below
@@ -183,6 +183,7 @@ def main():
     ap.add_argument("--config", default=CONFIG, help=f"model config (default {CONFIG})")
     ap.add_argument("--params", default=None)
     ap.add_argument("--buckets", type=int, nargs="+", default=[16, 32, 48])
+    ap.add_argument("--batch", type=int, default=BATCH, help=f"pockets a sampling batch (default {BATCH})")
     ap.add_argument("--own_kk", action="store_true",
                     help="sample on the encoder's own kk (dense or blocks) instead of compact_kk's neighbor list")
     ap.add_argument("--train", action="store_true", help="profile training steps of --config instead of sampling")
@@ -202,13 +203,13 @@ def main():
     dev = next(model.parameters()).device
     n_rec_feat, n_lig_feat, _ = resolve_feature_sizes(cfg)
     report = [f"{torch.cuda.get_device_name(0)}; {args.config}; weights "
-              f"{args.params or 'random seed 0'}; batch {BATCH}; {STEPS} steps"]
+              f"{args.params or 'random seed 0'}; batch {args.batch}; {STEPS} steps"]
     role = {}  # which dense edge module (edge_ll, edge_kk, or a radius edge_kl / edge_lk) is running
     for name, mod in model.named_modules():
         if isinstance(mod, egnn_mod.EGNNEdgeDense):
             mod.register_forward_pre_hook(lambda m, a, r=name.rsplit(".", 1)[-1][-2:]: role.update(now=r))
     for n_lig in args.buckets:
-        cpx = synthetic_batch(0, batch=BATCH, n_rec_pad=pad.n_rec, n_lig_pad=n_lig, n_rec_feat=n_rec_feat,
+        cpx = synthetic_batch(0, batch=args.batch, n_rec_pad=pad.n_rec, n_lig_pad=n_lig, n_rec_feat=n_rec_feat,
                               n_lig_feat=n_lig_feat, n_kp=pad.n_kp, kp_feat_dim=model.cfg.rec_nf,
                               kp_vec_dim=model.kp_vec_dim, n_ip_pad=pad.n_ip, min_rec=min(260, 3 * pad.n_rec // 4),
                               min_lig=min(18, n_lig - 2), device=dev)

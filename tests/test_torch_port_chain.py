@@ -14,8 +14,10 @@ the step on the same buffers, as a graph replays its kernels on them.
       output's scale): full, strided, eta=0, frames (not aliased), fake
       atoms, a neighbor-list kk;
   (b) a capture audit: one step's ATen ops, recorded with a
-      TorchDispatchMode after a warm-up step for the flagship, egnn_ca on compact_kk's list,
-      gvp_40kp, kl_k 0 and ll_k 16, hold no host synchronisation, no
+      TorchDispatchMode after a warm-up step for the flagship, egnn_ca on compact_kk's list
+      (on the list route, and on the kernel's route as its dense mask, with
+      the dynamics made to see a kernel device), gvp_40kp, kl_k 0 and ll_k
+      16, hold no host synchronisation, no
       data-dependent shape and no tensor built from host data, and two
       successive steps issue the same ops with the same host arguments (a
       graph freezes every host value of the step it captured);
@@ -40,6 +42,7 @@ from kpdiff_tpu.serve import KeypointSampler as JKeypointSampler
 from kpdiff_tpu_torch.config import PaddingConfig, dump_yaml, model_from_config as tmodel, resolve_feature_sizes
 from kpdiff_tpu_torch.cli import import_params
 from kpdiff_tpu_torch.data.molgen import molgen_splits_for_config
+from kpdiff_tpu_torch.models import dynamics_egnn
 from kpdiff_tpu_torch.models.chain_graph import ChainGraphs, host_capture
 from kpdiff_tpu_torch.models.complex import synthetic_batch as tsyn
 from kpdiff_tpu_torch.models.size_dist import save_dataset_histogram
@@ -213,8 +216,11 @@ def _audit_model(name):
     return tm, enc, kk
 
 
-@pytest.mark.parametrize("name", ["flagship", "egnn_ca:compact_kk", "gvp_40kp", "kl_k0", "ll_k16"])
-def test_step_capture_audit(name):
+@pytest.mark.parametrize("name", ["flagship", "egnn_ca:compact_kk", "gvp_40kp", "kl_k0", "ll_k16",
+                                  "egnn_ca:compact_kk:kernel_route"])
+def test_step_capture_audit(name, monkeypatch):
+    if name.endswith(":kernel_route"):  # the kk list's mask and the kNN masks, as on the card
+        monkeypatch.setattr(dynamics_egnn, "kernel_device", lambda device: True)
     tm, enc, kk = _audit_model(name)
     gen = torch.Generator().manual_seed(0)
     st, k, _ = tm.start_chain(enc, kk, sample_steps=4, generator=gen)

@@ -1,16 +1,28 @@
 """The route of the EGNN dynamics' kk edges and the serving layer's count of
 a kk neighbor list (kpdiff_tpu_torch/models/dynamics_egnn.py, serve.py):
 which kk module each conv layer calls (the neighbor-list module kk_nbr, or
-edge_kk over the block layout's windows or over a dense grid), the
-serving counter serve.chunks_kk_<layout>, and serve.kk_nbr_slots and
-serve.kk_nbr_edges, which count, for each chunk whose kk is a neighbor
-list, the slots the list computes and the valid edges among them, each
-times the chain's steps.
+edge_kk over the block layout's windows, over a dense grid or over a
+neighbor list's dense mask), the serving counter serve.chunks_kk_<layout>,
+and serve.kk_nbr_slots and serve.kk_nbr_edges, which count, for each chunk
+whose kk is a neighbor list, the slots the list computes and the valid
+edges among them, each times the chain's steps.
+
+Where the edge kernel runs and nothing records autograd, a neighbor-list kk
+goes to edge_kk as its dense (B, K, K) mask (`neighbor_list_adjacency`);
+elsewhere it stays the list. The cases here check the mask against the rr
+radius graph and the list's edge count, one dynamics call on either route,
+and the counters dynamics.kk_route_kernel / dynamics.kk_route_list. The
+CPU cases make the dynamics see a kernel device by patching its
+`kernel_device`; `egnn_edge_dense` then runs its plain version. The case
+marked `card` runs the kernel at the all-atom cell's shapes and skips
+without a card.
 
 `egnn_all_atom` (a fixed encoder: the pocket atoms are the keypoints, kk
 the rr radius graph in the block layout, which compact_kk turns into a
 neighbor list) and the flagship `egnn_40kp` (a learned encoder and a dense
-kk) at a tiny width on the CPU. This file imports no JAX.
+kk) at a tiny width on the CPU. This file imports no JAX, so that it runs
+on the card as it is: `python3 -m pytest --noconftest -m card
+tests/test_torch_port_kk_route.py`.
 """
 from __future__ import annotations
 
@@ -24,12 +36,19 @@ import torch
 
 from kpdiff_tpu_torch.config import PaddingConfig, dump_yaml, load_config, model_from_config, resolve_feature_sizes
 from kpdiff_tpu_torch.data.padding import pad_item, to_complex
+from kpdiff_tpu_torch.models import dynamics_egnn
+from kpdiff_tpu_torch.models.egnn import EGNNEdgeDense, EGNNEdgeNbrList
+from kpdiff_tpu_torch.ops.cuda import egnn_edge
+from kpdiff_tpu_torch.ops.neighbors import dense_radius_adjacency, neighbor_list_adjacency, radius_neighbor_list
 from kpdiff_tpu_torch.utils import profiling
 
 ROOT = Path(__file__).resolve().parents[1]
 ROUTES = ("dense", "nbr", "block")
+COUNTERS = ("dynamics.kk_route_kernel", "dynamics.kk_route_list")
 N_LAYERS = 2
 N_REC = 64
+RR = 3.5
+BF16_REL = 2e-2
 
 
 @pytest.fixture
@@ -40,11 +59,18 @@ def tracer(monkeypatch):
     return tr
 
 
-def _config(name: str):
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA edge kernel has no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _config(name: str, dtype: str = "float32"):
     """configs/<name>.yml at width 16, two layers, 64 receptor slots (6 keypoints for a learned encoder)."""
     cfg = copy.deepcopy(load_config(ROOT / "configs" / f"{name}.yml"))
     cfg["padding"]["n_rec"] = N_REC
-    cfg["dynamics"].update(n_layers=N_LAYERS, hidden_nf=16, compute_dtype="float32")
+    cfg["dynamics"].update(n_layers=N_LAYERS, hidden_nf=16, compute_dtype=dtype)
     if cfg["diffusion"]["rec_encoder_type"] == "learned":
         cfg["graph"]["n_keypoints"] = 6
         cfg["rec_encoder"].update(n_convs=1, hidden_n_node_feat=16, out_n_node_feat=16, compute_dtype="float32")
@@ -187,3 +213,154 @@ def test_dense_kk_counts_no_list(tracer, tmp_path):
     assert sampler.last_request["chunks"][0]["kk"] == "dense" and c["serve.chunks_kk_dense"] == 1
     assert "serve.kk_nbr_slots" not in c and "serve.kk_nbr_edges" not in c
     assert calls.only("dense", N_LAYERS * 3), calls.calls
+
+
+def rel_max(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(1e-30))
+
+
+def _all_atom_list(seeds=(0, 4), n_recs=(40, 27), dtype: str = "float32"):
+    """An egnn_all_atom model and one batch of its pockets (one per seed, each
+    of its n_rec atoms in 64 slots, the rest padded keypoints), encoded, with
+    compact_kk's neighbor list."""
+    cfg = _config("egnn_all_atom", dtype)
+    model = model_from_config(cfg, device="cpu", seed=0).eval()
+    pad = dataclasses.replace(PaddingConfig.from_config(cfg), n_lig=16)
+    items = []
+    for seed, n_rec in zip(seeds, n_recs):
+        p = _pocket(seed, n_rec=n_rec)
+        rng = np.random.default_rng(seed + 100)
+        lig = (p["rec_pos"].mean(0) + rng.normal(size=(9, 3)) * 2).astype(np.float32)
+        item = dict(lig_pos=lig, lig_feat=np.eye(10, dtype=np.float32)[rng.integers(0, 10, 9)],
+                    **{k: p[k] for k in ("rec_pos", "rec_feat", "rec_res_idx", "interface_points")})
+        items.append(pad_item(item, pad, n_lig_feat_out=10))
+    cpx = to_complex(items, pad, resolve_feature_sizes(cfg)[2], None, device="cpu")
+    with torch.no_grad():
+        enc, kk = model.encode(cpx)
+        kk = model.compact_kk(enc, kk)
+    assert isinstance(kk, tuple) and kk[0].shape[-1] < N_REC
+    return model, enc, kk
+
+
+def _alias_a_padded_slot(idx, valid):
+    """The list with one slot that is not valid pointing at a real neighbour
+    of its own row (a scatter that wrote `valid` would clear that edge)."""
+    idx = idx.clone()
+    row = torch.nonzero(valid.any(-1) & ~valid.all(-1))[0]
+    slots = valid[row[0], row[1]]
+    first_valid, first_pad = int(torch.nonzero(slots)[0]), int(torch.nonzero(~slots)[-1])
+    idx[row[0], row[1], first_pad] = idx[row[0], row[1], first_valid]
+    return idx
+
+
+@pytest.mark.parametrize("alias", [False, True], ids=["as_built", "padded_slot_aliases_a_neighbour"])
+def test_list_mask_is_the_radius_graph(alias):
+    """compact_kk's neighbor list scattered into (B, K, K) is the rr radius
+    graph without self edges, padded keypoints included (no edge to or from
+    them); a slot that is not valid adds and clears nothing, even where its
+    index names a real neighbour of its row."""
+    model, enc, (idx, valid) = _all_atom_list()
+    if alias:
+        idx = _alias_a_padded_slot(idx, valid)
+    mask = neighbor_list_adjacency(idx, valid, N_REC)
+    want = dense_radius_adjacency(enc.kp_x, enc.kp_mask, enc.kp_x, enc.kp_mask, RR, exclude_self=True)
+    assert not bool(enc.kp_mask.all())
+    assert mask.shape == want.shape == (2, N_REC, N_REC) and mask.is_contiguous()
+    assert torch.equal(mask, want)
+    assert int(want.sum()) > 0
+
+
+def test_list_mask_counts_the_list_edges():
+    """Each destination's edge count in the mask (summed over its sources)
+    equals the list's valid slots of that row: message_norm's kk count, read
+    from `valid`, is the mask's count too."""
+    _, _, (idx, valid) = _all_atom_list(seeds=(1, 2, 3), n_recs=(40, 33, 12))
+    mask = neighbor_list_adjacency(idx, valid, N_REC)
+    assert torch.equal(torch.sum(mask, dim=1), torch.sum(valid, dim=-1))
+    assert torch.equal(torch.sum(mask, dim=(1, 2)), torch.sum(valid, dim=(1, 2)))
+
+
+def _dynamics_call(model, enc, kk, grad: bool = False):
+    b = enc.batch_size
+    with torch.set_grad_enabled(grad):
+        return model._apply_dynamics(model.dynamics, enc.lig_x, enc.lig_h, enc.lig_mask, enc.kp_x, enc.kp_h,
+                                     enc.kp_mask, torch.full((b,), 0.5), kk)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", BF16_REL)], ids=["f32", "bf16"])
+def test_mask_route_matches_the_list_route(monkeypatch, dtype, tol):
+    """One EGNNDynamics call (update_kp_feat, compact_kk's list) on the
+    kernel's route (kernel device patched in: edge_kk over the mask, the
+    kernel's plain version) against the same call on the list route (kk_nbr),
+    within 1e-4 of scale in f32 and 2e-2 in bf16."""
+    model, enc, kk = _all_atom_list(dtype=dtype)
+    calls = KKCalls(model)
+    want = _dynamics_call(model, enc, kk)
+    assert calls.only("nbr", N_LAYERS), calls.calls
+    monkeypatch.setattr(dynamics_egnn, "kernel_device", lambda device: True)
+    calls = KKCalls(model)
+    got = _dynamics_call(model, enc, kk)
+    assert calls.only("dense", N_LAYERS), calls.calls
+    for g_, w_, part in zip(got, want, ("eps_h", "eps_x")):
+        assert torch.isfinite(g_).all()
+        err = rel_max(g_, w_)
+        assert err <= tol, f"{part}: {err:.3e} of scale"
+
+
+def _counters(tracer):
+    return {name: tracer.snapshot()["counters"].get(name, 0) for name in COUNTERS}
+
+
+@pytest.mark.parametrize("case", ["kernel_no_grad", "kernel_autograd", "cpu", "dense_kk"])
+def test_kk_route_counters(tracer, monkeypatch, case):
+    """dynamics.kk_route_kernel / kk_route_list count n_layers a call of a
+    neighbor-list kk by route: the kernel's where the kernel runs and nothing
+    records autograd, the list's under autograd or on the CPU; a dense kk
+    counts on neither."""
+    model, enc, kk = _all_atom_list()
+    if case.startswith("kernel"):
+        monkeypatch.setattr(dynamics_egnn, "kernel_device", lambda device: True)
+    if case == "dense_kk":
+        kk = dense_radius_adjacency(enc.kp_x, enc.kp_mask, enc.kp_x, enc.kp_mask, RR, exclude_self=True)
+    _dynamics_call(model, enc, kk, grad=case == "kernel_autograd")
+    want = {"kernel_no_grad": (N_LAYERS, 0), "kernel_autograd": (0, N_LAYERS), "cpu": (0, N_LAYERS),
+            "dense_kk": (0, 0)}[case]
+    assert _counters(tracer) == dict(zip(COUNTERS, want))
+
+
+@pytest.mark.card
+def test_all_atom_shapes_on_the_card(card):
+    """The kernel route at the all-atom cell's shapes (B=32, K=384, the rr
+    list of molgen pockets at cap 24, width 257, bf16): edge_kk over the
+    list's mask against kk_nbr over the list in f32 on the same parameters,
+    within 2e-2 of scale; two launches on the same inputs bitwise equal."""
+    from portbench.traffic.molgen import complex_of_size
+
+    b, k, h, cap = 32, 384, 257, 24
+    rng = np.random.default_rng(20231122)
+    x = torch.zeros(b, k, 3)
+    mask = torch.zeros(b, k, dtype=torch.bool)
+    for i in range(b):
+        pos = complex_of_size(rng, int(rng.integers(13, 33)), ["C", "N", "O", "S"], 4)["rec_pos"]
+        x[i, :len(pos)], mask[i, :len(pos)] = torch.from_numpy(pos), True
+    x, mask = x.to(card), mask.to(card)
+    adj = dense_radius_adjacency(x, mask, x, mask, RR, exclude_self=True)
+    assert int(adj.sum(1).max()) <= cap
+    idx, valid = radius_neighbor_list(x, mask, x, mask, RR, cap, exclude_self=True)
+    kk_mask = neighbor_list_adjacency(idx, valid, k)
+    assert torch.equal(kk_mask, adj)
+    g = torch.Generator(device=card).manual_seed(3)
+    hs = torch.randn(b, k, h, generator=g, device=card) * mask[..., None]
+    mod = EGNNEdgeDense(h, h, torch.Generator().manual_seed(4), use_tanh=True, dtype="bfloat16").to(card)
+    ref = EGNNEdgeNbrList(h, h, torch.Generator(), use_tanh=True, dtype="float32").to(card)
+    ref.load_state_dict(mod.state_dict())
+    with torch.no_grad():
+        want = ref(hs, hs, x, x, idx, valid)
+        before = egnn_edge.launches
+        got, again = mod(hs, hs, x, x, kk_mask), mod(hs, hs, x, x, kk_mask)
+    torch.cuda.synchronize()
+    assert egnn_edge.launches == before + 2
+    for g_, a_, w_, part in zip(got, again, want, ("agg_h", "agg_x")):
+        assert torch.equal(g_, a_), f"{part}: two launches differ"
+        err = rel_max(g_, w_)
+        assert err <= BF16_REL, f"{part}: {err:.3e} of scale"

@@ -4,7 +4,9 @@ gloo ranks, against the port's unsharded run and kpdiff_tpu's sample.
 `pad_kp` is held against the JAX package's on the same arrays (exact). The
 sharded sample runs on 2 and 4 CPU ranks (one spawn for each, every case
 inside it) for dense kk (egnn_40kp, K = 40), the fixed encoder's neighbor
-list (egnn_ca, padding.n_rec 64), dense radius kl/lk (kl_k 0) and GVP
+list (egnn_ca, padding.n_rec 64; also on the kernel's route, the dynamics
+made to see a kernel device: each rank's (B, K, K/n) mask of the list
+through the kernel's plain version), dense radius kl/lk (kl_k 0) and GVP
 (10 keypoints: padded to 12 on 4 ranks), at 2 layers and narrow widths,
 f32, on injected noise; each must equal both references within
 tests/test_kp_sharding.py::_assert_close's rel 2e-4 of the scale + 1e-3.
@@ -19,20 +21,24 @@ import pytest
 import torch
 
 from kpdiff_tpu_torch.config import PaddingConfig, load_config, model_from_config, resolve_feature_sizes
+from kpdiff_tpu_torch.models import dynamics_egnn
 from kpdiff_tpu_torch.models.complex import synthetic_batch
 from kpdiff_tpu_torch.parallel import distributed as pdist
 from kpdiff_tpu_torch.parallel.kp_shard import pad_kp, shard_encoded
 from kpdiff_tpu_torch.parallel.mesh import make_mesh
+from kpdiff_tpu_torch.utils import profiling
 
 ROOT = Path(__file__).resolve().parents[1]
 SAMPLE_STEPS = 4
 CASES = {
     "dense_kk": ("egnn_40kp", {}),
     "nbr_kk": ("egnn_ca", {}),
+    "nbr_kk_mask": ("egnn_ca", {}),
     "kl_k0": ("egnn_40kp", {"dynamics": {"kl_k": 0}}),
     "gvp": ("gvp_40kp", {"graph": {"n_keypoints": 10}}),
 }
 N_RANKS = (2, 4)
+KERNEL_ROUTE = ("nbr_kk_mask",)
 
 
 def case_config(name, over):
@@ -74,13 +80,22 @@ def case_inputs(cfg, seed=0):
 def _rank_sample(rank, cases, out_dir):
     n = pdist.world_size()
     mesh = make_mesh(n, ("model",), device="cpu")
+    real_device = dynamics_egnn.kernel_device
     for case, (cfg, enc, kk, noise) in cases.items():
         tm = model_from_config(cfg, device="cpu", seed=1)
         enc_s, kk_s, shard = shard_encoded(enc, kk, mesh, axis="model")
         assert enc_s.kp_x.shape[1] == -(-enc.kp_x.shape[1] // n)
-        out = tm.sample(enc_s, kk_s, sample_steps=SAMPLE_STEPS, noise=noise, kp_shard=shard)
+        profiling.TRACER = profiling.Tracer()
+        if case in KERNEL_ROUTE:
+            dynamics_egnn.kernel_device = lambda device: True
+        try:
+            out = tm.sample(enc_s, kk_s, sample_steps=SAMPLE_STEPS, noise=noise, kp_shard=shard)
+        finally:
+            dynamics_egnn.kernel_device = real_device
+        routed = profiling.snapshot()["counters"].get("dynamics.kk_route_kernel", 0)
         if rank == 0:
-            np.savez(Path(out_dir) / f"{case}_{n}.npz", **{k: out[k].numpy() for k in ("lig_x", "lig_h", "kp_x")})
+            np.savez(Path(out_dir) / f"{case}_{n}.npz", kk_route_kernel=routed,
+                     **{k: out[k].numpy() for k in ("lig_x", "lig_h", "kp_x")})
 
 
 def _assert_close(got, want, rel=2e-4, msg=""):
@@ -126,10 +141,11 @@ def sharded(tmp_path_factory):
 def test_kp_sharded_sample_matches_unsharded_and_jax(sharded, case, n):
     want, got = sharded
     w, g = want[case], got[(case, n)]
-    if case == "nbr_kk":
+    if case.startswith("nbr_kk"):
         assert isinstance(w["kk"], tuple), "expected a capped neighbor list at rr=3.5"
     elif case != "gvp":
         assert torch.is_tensor(w["kk"]) and w["kk"].shape[1] == 40
+    assert (int(g["kk_route_kernel"]) > 0) == (case in KERNEL_ROUTE)
     for k in ("lig_x", "lig_h"):
         assert np.isfinite(g[k]).all()
         _assert_close(g[k], w["port"][k], msg=f"{case} n={n} {k} vs the port unsharded")
