@@ -200,6 +200,7 @@ from kpdiff_tpu_torch.models.chain_graph import STATE, clone_tree, copy_tree
 from kpdiff_tpu_torch.models.diffusion import KeypointDiffusion
 from kpdiff_tpu_torch.models.size_dist import LigandSizeDistribution, save_dataset_histogram
 from kpdiff_tpu_torch.ops.cuda import egnn_edge
+from kpdiff_tpu_torch.ops.edge_sets import layout_name
 from kpdiff_tpu_torch.ops.neighbors import dense_radius_adjacency
 from kpdiff_tpu_torch.ops.spatial import block_radius_adjacency, choose_tile, spatial_sort_permutation
 from kpdiff_tpu_torch.parallel import distributed as pdist
@@ -652,10 +653,6 @@ def sync():
         torch.cuda.synchronize()
 
 
-def kk_layout(kk) -> str:
-    return "block" if isinstance(kk, dict) else f"nbr{int(kk[0].shape[-1])}" if isinstance(kk, tuple) else "dense"
-
-
 def launches_per_step(model) -> int:
     """Edge-kernel launches of one reverse step (or held-out loss) under
     no_grad on the card: n_layers for ll, as many again for kl (the kNN
@@ -680,7 +677,7 @@ class ChainLog:
         def logged(model, cpx, kk, *a, **kw):
             steps = kw.get("sample_steps") or 0
             n = steps if 0 < steps < model.cfg.n_timesteps else model.cfg.n_timesteps
-            log.append(dict(steps=n, kk=kk_layout(kk), per_step=launches_per_step(model),
+            log.append(dict(steps=n, kk=layout_name(kk), per_step=launches_per_step(model),
                             batch=int(cpx.lig_x.shape[0]), bucket=int(cpx.lig_x.shape[1])))
             return real(model, cpx, kk, *a, **kw)
 
@@ -1033,8 +1030,8 @@ def family_phase(name, seed, dev, data_cache, kernel_rows):
     for k, shape in (("lig_x", (FAMILY_BATCH, pad.n_lig, 3)), ("lig_h", (FAMILY_BATCH, pad.n_lig, n_lig_feat))):
         if tuple(out[k].shape) != shape or not torch.isfinite(out[k]).all():
             raise RuntimeError(f"{name}: {k} has shape {tuple(out[k].shape)} or is not finite")
-    paths[f"family_{name}"] = log.check(f"{name} sample (kk {kk_layout(own_kk)} -> {kk_layout(kk)})")
-    rec.update(sample=dict(kk_encoder=kk_layout(own_kk), kk_sample=kk_layout(kk), chain_s=chain_s,
+    paths[f"family_{name}"] = log.check(f"{name} sample (kk {layout_name(own_kk)} -> {layout_name(kk)})")
+    rec.update(sample=dict(kk_encoder=layout_name(own_kk), kk_sample=layout_name(kk), chain_s=chain_s,
                            ms_per_step=chain_s / FAMILY_K * 1e3, s_per_ligand=chain_s / FAMILY_BATCH,
                            peak_memory_bytes=torch.cuda.max_memory_allocated(), **paths[f"family_{name}"]))
 
@@ -1053,7 +1050,7 @@ def family_phase(name, seed, dev, data_cache, kernel_rows):
                 model.sample(enc, own_kk, sample_steps=FAMILY_OWN_KK_STEPS, generator=gen, cuda_graph=False)
         finally:
             egnn_mod.egnn_edge_dense = real_wrapper
-        paths[f"family_{name}_own_kk"] = log.check(f"{name} own kk {kk_layout(own_kk)}")
+        paths[f"family_{name}_own_kk"] = log.check(f"{name} own kk {layout_name(own_kk)}")
         worst = max(errs)
         print(f"  {name}: {len(errs)} launches on its own kk, each against the plain version: max_rel_err "
               f"{worst:.3e} (tolerance {TOL[torch.bfloat16]:.0e})", flush=True)
@@ -1520,7 +1517,7 @@ def graph_option_phase(cfg, flat, seed, dev, label, overrides, check_steps, kern
     for k, shape in (("lig_x", (REF_BATCH, REF_BUCKET, 3)), ("lig_h", (REF_BATCH, REF_BUCKET, 10))):
         if tuple(out[k].shape) != shape or not torch.isfinite(out[k]).all():
             raise RuntimeError(f"{label}: {k} has shape {tuple(out[k].shape)} or is not finite")
-    path = log.check(f"{label} (kk {kk_layout(kk)})")
+    path = log.check(f"{label} (kk {layout_name(kk)})")
     rec = dict(overrides=overrides, chain_s=chain_s, ms_per_step=chain_s / REF_K * 1e3, **path)
     if check_steps:
         check = check_log.check(f"{label}, {check_steps}-step chain against the plain version")
@@ -1747,7 +1744,7 @@ def parallel_sample(params_path, seed, dev):
     u, sh_run = runs["unsharded"], runs["sharded"]
     free = rel_err([sh_run["out"]["lig_x"]], [u["out"]["lig_x"]])
     print(f"parallel sample: kp-sharded trained flagship, batch {PAR_BATCH}, bucket {PAR_BUCKET}, K={PAR_K}, "
-          f"kk {kk_layout(kk)}: launches sharded {sh_run['launches']} unsharded {u['launches']}; ms/step on CUDA events "
+          f"kk {layout_name(kk)}: launches sharded {sh_run['launches']} unsharded {u['launches']}; ms/step on CUDA events "
           f"sharded {sh_run['ms_per_step']:.3f} unsharded {u['ms_per_step']:.3f}; sharded dynamics on the "
           f"unsharded chain's {len(step_errs)} states: max_rel_err {worst:.3e} (tolerance {TOL[torch.bfloat16]:.0e}; "
           f"the unsharded dynamics again on them: {replay:.3e}); free chains' lig_x max_rel_diff {free:.3e} "
@@ -1756,7 +1753,7 @@ def parallel_sample(params_path, seed, dev):
         raise RuntimeError(f"parallel sample: launches sharded {sh_run['launches']}, unsharded {u['launches']}")
     if len(step_errs) != PAR_K or not worst <= TOL[torch.bfloat16]:
         raise RuntimeError(f"parallel sample: {len(step_errs)} states, max_rel_err {worst:.3e}")
-    return dict(kk=kk_layout(kk), launches=sh_run["launches"], launches_unsharded=u["launches"],
+    return dict(kk=layout_name(kk), launches=sh_run["launches"], launches_unsharded=u["launches"],
                 ms_per_step=sh_run["ms_per_step"], ms_per_step_unsharded=u["ms_per_step"],
                 step_max_rel_err=worst, replay_max_rel_err=replay, free_max_rel_diff=free,
                 checked_launches=checked_launches)
@@ -1922,7 +1919,7 @@ def graph_chain_record(model, enc, kk, gen, label, steps, batch, check_at, tol):
                 eager_s=e_s, eager_ms_per_step=e_ms / steps, eager_s_per_ligand=e_s / batch, speedup=e_s / g_s,
                 capture_s=cap["capture_s"], pool_bytes=cap["pool_bytes"], pool_growth=cap["pool_growth"],
                 launches=g_launches, launches_per_step=per_step, step_max_diff=worst, step_bitwise=bitwise,
-                kk=kk_layout(kk))
+                kk=layout_name(kk))
 
 
 def graph_profiles(model, enc, kk, gen, label, rec, steps=GRAPH_PROFILE_STEPS):
@@ -2036,7 +2033,7 @@ def graph_phase(params_path, seed, dev):
     load_params(kl0, read_keystr_npz(params_path))
     kl0.eval()
     enc32, kk32, _ = chains[32]
-    layout_runs = (("egnn_ca_" + kk_layout(ca_kk), ca, ca_enc, ca_kk), ("flagship_kl_k0", kl0, enc32, kk32),
+    layout_runs = (("egnn_ca_" + layout_name(ca_kk), ca, ca_enc, ca_kk), ("flagship_kl_k0", kl0, enc32, kk32),
                    ("flagship_dense", model, enc32, kk32), ("gvp_40kp", gvp, genc, gkk))
 
     # every profile last: torch.profiler slows what follows it
@@ -2051,9 +2048,9 @@ def graph_phase(params_path, seed, dev):
         r0 = entry.replays
         _, _, _, edge = profiled(lambda: m.sample(e, k, sample_steps=5, generator=g))
         want = launches_per_step(m) * 5
-        layouts[label] = dict(kk=kk_layout(k), profiled_edge_launches=edge, expected=want,
+        layouts[label] = dict(kk=layout_name(k), profiled_edge_launches=edge, expected=want,
                               captured=entry.launches, replays=entry.replays - r0)
-        print(f"graph layout {label} (kk {kk_layout(k)}): 5 replays, {edge} edge-kernel rows in the profile, "
+        print(f"graph layout {label} (kk {layout_name(k)}): 5 replays, {edge} edge-kernel rows in the profile, "
               f"expected {want} ({entry.launches} captured x {entry.replays - r0} replays)", flush=True)
         if edge != want or entry.launches * (entry.replays - r0) != want:
             raise RuntimeError(f"graph layout {label}: {edge} profiled edge launches, expected {want}")
@@ -2101,10 +2098,10 @@ def _train_run(cfg, flat, dev, seed, batches, t_eps, iters_per_epoch, graph, bef
 
 
 def _edge_packs(module):
-    """The packed kernel weights of every kernel-path EGNNEdgeDense under `module`, as lists of tensors."""
+    """The packed kernel weights of every kernel-path EGNNEdge under `module`, as lists of tensors."""
     out = []
     for m in module.modules():
-        if isinstance(m, egnn_mod.EGNNEdgeDense) and m.kernel_ok:
+        if isinstance(m, egnn_mod.EGNNEdge) and m.kernel_ok:
             out.append([t for v in m._kernel_weights().values()
                         for t in ((v,) if torch.is_tensor(v) else v) if torch.is_tensor(t)])
     return out
@@ -2394,7 +2391,7 @@ def main():
             with torch.no_grad():
                 enc, kk = model.encode(cpx)
                 kk = model.compact_kk(enc, kk)
-            layout = f"nbr_cap{int(kk[0].shape[-1])}" if isinstance(kk, tuple) else "dense"
+            layout = layout_name(kk)
             encoded[n_lig] = (enc, kk)
             gen = torch.Generator(device=dev).manual_seed(args.seed + n_lig)
             model.sample(enc, kk, sample_steps=2, generator=gen)  # warm-up (cuBLAS, allocator)

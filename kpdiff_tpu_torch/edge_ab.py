@@ -1,4 +1,5 @@
-"""Device time of the dense EGNN edge kernel of one checkout of the port, for comparing kernel versions on one card.
+"""Device time of the edge kernel behind EGNNEdge's dense form (models/egnn.py) in one checkout of the port, for
+comparing kernel versions on one card.
 
     python3 kpdiff_tpu_torch/edge_ab.py ROOT LABEL [--clocks] >> results.jsonl
 
@@ -12,9 +13,8 @@ inputs made from one seed. Active pairs follow the main paths' densities
 (kk dense, ll about half). Each row is the device ms per launch, 20 launches
 queued behind a spin kernel (chip_smoke.py's `device_ms`). --clocks adds the
 profiling build's phase shares at flagship kk40 and ll48. Prints one JSON
-line. The operand formats of kernel v4 (padded W2, f32 rows) and v5 (pack_w2,
-rows in the compute dtype) are both handled, so that two versions run in one
-call on one card: parent, change, change, parent.
+line. Two checkouts run in one call on one card: parent, change, change,
+parent.
 """
 from __future__ import annotations
 
@@ -49,7 +49,6 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("edge_ab: needs a CUDA card")
     dev = torch.device("cuda", 0)
-    v5 = hasattr(E, "pack_w2")
 
     def queued(fn, iters=20):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -79,11 +78,8 @@ def main():
         x_d = t(rng.normal(size=(b, nd, 3)).astype(np.float32) * 3)
         adj = t(rng.random((b, ns, nd)) < density, torch.bool)
         cd = torch.bfloat16
-        if v5:
-            a = [E.aligned_rows(x, cd) for x in a]
-            w2e, w2c = E.pack_w2(w2e, cd), E.pack_w2(w2c, cd)
-        else:
-            w2e, w2c = E.pad_weight(w2e, cd), E.pad_weight(w2c, cd)
+        a = [E.aligned_rows(x, cd) for x in a]
+        w2e, w2c = E.pack_w2(w2e, cd), E.pack_w2(w2c, cd)
         return (*a, *w_dij, w2e, b2e, attw, atb, w2c, b2c, wout, x_s, x_d, adj)
 
     kw = dict(use_tanh=True, coords_range=10.0, compute_dtype=torch.bfloat16)
@@ -97,8 +93,7 @@ def main():
             clocks[name] = {role: {k: v / max(sum(c.values()), 1) for k, v in c.items()} for role, c in by_role.items()}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
-    print(json.dumps(dict(label=args.label, kernel="v5" if v5 else "v4", card=card, rows=rows, phase_shares=clocks)),
-          flush=True)
+    print(json.dumps(dict(label=args.label, card=card, rows=rows, phase_shares=clocks)), flush=True)
 
 
 if __name__ == "__main__":

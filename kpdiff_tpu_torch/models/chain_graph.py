@@ -52,14 +52,15 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from kpdiff_tpu_torch.ops.cuda import egnn_edge
-from kpdiff_tpu_torch.utils import profiling
+from kpdiff_tpu_torch.utils import profiling, remake
 
 STATE = ("lig_x", "lig_h", "kp_x")
 
 
 def tree_signature(tree) -> tuple:
     """Hashable structure of a dict / tuple / tensor / None tree: every
-    tensor's shape, dtype and device."""
+    tensor's shape, dtype and device, and each sequence's type (a NbrList
+    is not a plain tuple)."""
     if tree is None:
         return (None,)
     if torch.is_tensor(tree):
@@ -67,7 +68,7 @@ def tree_signature(tree) -> tuple:
     if isinstance(tree, dict):
         return ("d",) + tuple((k, tree_signature(tree[k])) for k in sorted(tree))
     if isinstance(tree, (tuple, list)):
-        return ("l",) + tuple(tree_signature(x) for x in tree)
+        return (type(tree).__name__,) + tuple(tree_signature(x) for x in tree)
     raise TypeError(f"a chain input of type {type(tree).__name__}")
 
 
@@ -75,8 +76,8 @@ def tree_shapes(tree, prefix: str = "") -> Dict[str, tuple]:
     """{path: shape} of every tensor of a dict / tuple / tensor tree."""
     if torch.is_tensor(tree):
         return {prefix: tuple(tree.shape)}
-    items = (tree.items() if isinstance(tree, dict) else enumerate(tree) if isinstance(tree, (tuple, list))
-             else ())
+    items = (tree.items() if isinstance(tree, dict) else tree._asdict().items() if hasattr(tree, "_fields")
+             else enumerate(tree) if isinstance(tree, (tuple, list)) else ())
     out = {}
     for k, v in items:
         out.update(tree_shapes(v, f"{prefix}.{k}" if prefix else str(k)))
@@ -90,7 +91,7 @@ def clone_tree(tree, device=None):
     if isinstance(tree, dict):
         return {k: clone_tree(v, device) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(clone_tree(x, device) for x in tree)
+        return remake(tree, [clone_tree(x, device) for x in tree])
     return tree
 
 

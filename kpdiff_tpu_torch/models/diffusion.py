@@ -12,7 +12,7 @@ p(z_s | z_t) update follow the JAX package step for step.
 
 `encode` is differentiable, so that the loss trains the encoder. Which
 path the dense edges take follows from autograd: while it records (the
-training loss), `EGNNEdgeDense` runs the kernel's plain version on its
+training loss), `EGNNEdge` runs the kernel's plain version on its
 parameters, as the JAX package trains through XLA; under `torch.no_grad()`
 (sampling, serving, the held-out loss) every dense edge type goes through
 the CUDA edge kernel, as the JAX package's sampler does with
@@ -55,6 +55,7 @@ from kpdiff_tpu_torch.models.dynamics_egnn import EGNNDynamics
 from kpdiff_tpu_torch.models.dynamics_gvp import GVPDynamics
 from kpdiff_tpu_torch.models.encoder_fixed import fixed_encode, fixed_kk_edges
 from kpdiff_tpu_torch.models.nn import compute_dtype
+from kpdiff_tpu_torch.ops.edge_sets import Blocks, as_kk, list_cap
 from kpdiff_tpu_torch.ops.geometry import masked_com
 from kpdiff_tpu_torch.ops.neighbors import dense_radius_adjacency, radius_neighbor_list
 from kpdiff_tpu_torch.ops.spatial import block_radius_adjacency, choose_tile
@@ -172,14 +173,14 @@ class KeypointDiffusion(nn.Module):
 
     def _kk_edges(self, cpx: PaddedComplex):
         """kk edges within the kk cutoff (rr for a fixed encoder): a dense
-        (B, K, K) adjacency, a neighbor list of at most 100 (layout 'nbr'),
-        or the banded block layout {'block': (B, nt, 3 * tile, tile)} over
-        the spatially sorted keypoints (layout 'block')."""
+        (B, K, K) adjacency, a `NbrList` of at most 100 (layout 'nbr'), or
+        the banded block layout `Blocks` (B, nt, 3 * tile, tile) over the
+        spatially sorted keypoints (layout 'block')."""
         layout = self.cfg.dynamics.get("kk_layout", "dense")
         r = self._kk_cutoff()
         if layout == "block":
             tile = choose_tile(cpx.kp_x.shape[1], int(self.cfg.dynamics.get("kk_block_size", 64)))
-            return {"block": block_radius_adjacency(cpx.kp_x, cpx.kp_mask, r, tile)}
+            return Blocks(block_radius_adjacency(cpx.kp_x, cpx.kp_mask, r, tile))
         if self.fixed:
             return fixed_kk_edges(cpx, r, layout=layout)
         if layout == "dense":
@@ -197,10 +198,10 @@ class KeypointDiffusion(nn.Module):
         EGNN dynamics run it as its dense (B, K, K) mask through the edge
         kernel where the kernel is taken, as the list elsewhere
         (models/dynamics_egnn.py)."""
-        if isinstance(kk, tuple):
+        if list_cap(kk):
             return kk
         r = self._kk_cutoff()
-        is_block = isinstance(kk, dict)
+        is_block = isinstance(kk, Blocks)
         adj = (dense_radius_adjacency(cpx.kp_x, cpx.kp_mask, cpx.kp_x, cpx.kp_mask, r, exclude_self=True)
                if is_block else kk)
         K = adj.shape[-1]
@@ -364,7 +365,7 @@ class KeypointDiffusion(nn.Module):
             dyn = copy.deepcopy(self.dynamics)
             for i in range(dyn.n_layers):
                 for name, mod in getattr(dyn, f"conv{i}").named_children():
-                    if name.startswith("edge_") or name == "kk_nbr":
+                    if name.startswith("edge_"):
                         mod.to(self.cd)
                     elif name.startswith("update_"):
                         mod.node_mlp.to(self.cd)
@@ -513,7 +514,7 @@ class KeypointDiffusion(nn.Module):
         t_int[:k], s_int[:k] = grid[:-1], grid[1:]
         t_tab = torch.as_tensor(t_int, device=dev) / T
         st = dict(lig_x=lig_x, lig_h=lig_h, kp_x=kp_x, lig_mask=cpx.lig_mask, lm=lm, km=km, kp_h=cpx.kp_h,
-                  kp_mask=cpx.kp_mask, kp_v=cpx.kp_v, kk=kk_edges, t=t_tab, gamma_t=self.schedule.gamma(t_tab),
+                  kp_mask=cpx.kp_mask, kp_v=cpx.kp_v, kk=as_kk(kk_edges), t=t_tab, gamma_t=self.schedule.gamma(t_tab),
                   gamma_s=self.schedule.gamma(torch.as_tensor(s_int, device=dev) / T),
                   index=torch.zeros(1, dtype=torch.int64, device=dev))
         if noise is not None:

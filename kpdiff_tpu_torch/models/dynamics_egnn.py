@@ -5,38 +5,35 @@ each ligand atom's ll_k nearest ligand atoms. Keypoint-ligand edges are,
 with kl_k > 0, each keypoint's kl_k nearest ligand atoms and, with
 kl_k == 0, the dense radius grid (B, K, Nl) on the kl cutoff, lk its
 transpose. All edges are rebuilt from current positions on every call;
-the kk edge structure comes in from the encoder, dense (B, K, K), a neighbor list
-(idx, valid) or blocks (below). The timestep is appended as a feature
-channel, so the working width is hidden_nf + 1. The kk structure may also
-be the banded block layout {'block': adj (B, nt, 3 * tile, tile)} over
-spatially sorted keypoints (kk_layout 'block', the all-atom configs): each
-tile of `tile` destinations against the 3 * tile sources of its window,
-reshaped to a dense (B * nt, 3 * tile, tile) grid.
+the kk edge set comes in from the encoder: dense (B, K, K), a `NbrList`
+or the banded block layout `Blocks` over spatially sorted keypoints
+(kk_layout 'block', the all-atom configs). The timestep is appended as a
+feature channel, so the working width is hidden_nf + 1. Each conv layer
+calls one `EGNNEdge` per edge type on its edge set, whatever its form
+(ops/edge_sets.py).
 
-Two edge sets change form with the route (`on_kernel`: CUDA tensors,
-nothing recording autograd). Where the edge kernel is taken, the kNN kl
-edges are a dense (B, K, Nl) mask (lk its transpose) and a kk neighbor
-list is scattered once a call into a dense (B, K, K) mask
-(`neighbor_list_adjacency`) that edge_kk takes; elsewhere (training, the
-CPU, where a dense plain version would do the whole grid's pair work) they
-stay a pair list (idx, valid) for EGNNEdgeKNNPairs and a neighbor list for
-kk_nbr. Each pair of forms carries the same edge set, and message_norm's
-kk edge count is read from the list's `valid` on both routes. The counters
-dynamics.kl_route_kernel / dynamics.kl_route_pairs (kNN kl and lk module
-calls) and dynamics.kk_route_kernel / dynamics.kk_route_list (kk module
-calls of a neighbor-list kk; a dense or block kk counts on neither) in
-utils/profiling.py count the calls by route.
+Two edge sets change form with the route, decided once a call here
+(`on_kernel`: CUDA tensors, nothing recording autograd). Where the edge
+kernel is taken, the kNN kl edges are a dense (B, K, Nl) mask (lk its
+transpose) and a kk neighbor list is scattered once a call into its dense
+(B, K, K) mask (`NbrList.adjacency`); elsewhere (training, the CPU, where
+a dense plain version would do the whole grid's pair work) they stay a
+`PairList` and a `NbrList`, which EGNNEdge runs in its `pairs` and `nbr`
+forms. Each pair of forms carries the same edge set, and message_norm's
+kk edge count is read from the list's `valid` on both routes. The
+counters dynamics.kl_route_kernel / dynamics.kl_route_pairs (kNN kl and
+lk module calls) and dynamics.kk_route_kernel / dynamics.kk_route_list (kk
+module calls of a neighbor-list kk; a dense or block kk counts on neither)
+in utils/profiling.py count the calls by route.
 
 Every dense edge grid (ll, kl and lk while dense or a kNN mask, kk while
 dense, a neighbor list's mask or the block windows) goes through the CUDA
 edge kernel under no_grad, as the JAX package's sampler does with
 `dynamics.use_pallas_sampling` for ll, dense kl, lk and dense kk; the JAX
 package's kNN pairs, kk neighbor list and block branch never take its
-Pallas kernel, the port's do. The kl and lk modules are named `edge_kl` and `edge_lk`
-under either layout, with the same parameters, so one archive loads under
-both. While autograd records they take the kernel's plain version. `remat`
-recomputes each conv layer in the backward pass (torch.utils.checkpoint),
-storing only the layer boundaries.
+Pallas kernel, the port's do. While autograd records they take the
+kernel's plain version. `remat` recomputes each conv layer in the
+backward pass (torch.utils.checkpoint), storing only the layer boundaries.
 
 With `kp_shard` (parallel/kp_shard.py::ShardContext) the keypoint tensors
 are this rank's rows: kl messages into the replicated ligand are partial
@@ -55,67 +52,37 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from kpdiff_tpu_torch.models.egnn import EGNNEdgeDense, EGNNEdgeKNNPairs, EGNNEdgeNbrList, NodeUpdate, records_grad
+from kpdiff_tpu_torch.models.egnn import EGNNEdge, NodeUpdate, records_grad
 from kpdiff_tpu_torch.models.nn import MLP
 from kpdiff_tpu_torch.ops.cuda.egnn_edge import kernel_device
-from kpdiff_tpu_torch.ops.neighbors import (dense_knn_adjacency, dense_radius_adjacency, knn_indices,
-                                            neighbor_list_adjacency)
-from kpdiff_tpu_torch.ops.spatial import block_windows
+from kpdiff_tpu_torch.ops.edge_sets import PairList, edge_count, list_cap, transpose
+from kpdiff_tpu_torch.ops.neighbors import dense_knn_adjacency, dense_radius_adjacency, knn_indices
 from kpdiff_tpu_torch.utils import profiling
 from kpdiff_tpu_torch.utils.profiling import device_mark
 
 
 class EGNNConvLayer(nn.Module):
-    """One heterograph EGNN layer: dense ll, kl as kNN pairs or a dense grid
-    (a radius grid with dense_kl, or the kNN mask on the kernel's route), and
-    lk, kk with update_kp_feat. On the kernel's route the dynamics hands a
-    neighbor-list kk in as its dense mask, which goes to edge_kk; kk_nbr
-    takes the list elsewhere."""
+    """One heterograph EGNN layer: ll, kl and, with update_kp_feat, lk and
+    kk, each one `EGNNEdge` call on its edge set in the form the dynamics
+    built it (ops/edge_sets.py)."""
 
     def __init__(self, hidden_size: int, gen: torch.Generator, use_tanh: bool, update_kp_feat: bool,
-                 norm: bool, dtype: str = "float32", dense_kl: bool = False):
+                 norm: bool, dtype: str = "float32"):
         super().__init__()
         h = hidden_size
         self.update_kp_feat = update_kp_feat
-        self.dense_kl = dense_kl
-        dense = dict(use_tanh=use_tanh, coords_range=10.0, dtype=dtype)
-
-        def kl_module(anchor_is_src):
-            if dense_kl:
-                return EGNNEdgeDense(h, h, gen, **dense)
-            return EGNNEdgeKNNPairs(h, h, gen, anchor_is_src=anchor_is_src, use_tanh=use_tanh, dtype=dtype)
-
-        self.edge_ll = EGNNEdgeDense(h, h, gen, **dense)
-        self.edge_kl = kl_module(True)
+        edge = dict(use_tanh=use_tanh, coords_range=10.0, dtype=dtype)
+        self.edge_ll = EGNNEdge(h, h, gen, **edge)
+        self.edge_kl = EGNNEdge(h, h, gen, **edge)
         if update_kp_feat:
-            self.edge_lk = kl_module(False)
-            # kk dispatches on its structure: a dense adjacency (or a neighbor list's mask)
-            # and the block windows go to edge_kk, a neighbor list to kk_nbr, which shares
-            # edge_kk's parameters
-            self.edge_kk = EGNNEdgeDense(h, h, gen, **dense)
-            self.kk_nbr = EGNNEdgeNbrList(h, h, gen, use_tanh=use_tanh, dtype=dtype)
-            for name, p in self.edge_kk.named_parameters():
-                setattr(self.kk_nbr, name, p)
+            self.edge_lk = EGNNEdge(h, h, gen, **edge)
+            self.edge_kk = EGNNEdge(h, h, gen, **edge)
+            # one edge module's draws, unused: `gen` then gives every later
+            # parameter the value a seed has always given it
+            EGNNEdge(h, h, gen, **edge)
         self.update_lig = NodeUpdate(h, h, h, gen, norm=norm, dtype=dtype)
         if update_kp_feat:
             self.update_kp = NodeUpdate(h, h, h, gen, norm=norm, dtype=dtype)
-
-    def _block_kk(self, h, x, adj):
-        """kk over the banded block layout: windows of 3 * tile sources to
-        tiles of `tile` destinations as one dense (B * nt, 3 * tile, tile) grid."""
-        b, nt, w, tile = adj.shape
-        f = h.shape[-1]
-        hw = block_windows(h, tile).reshape(b * nt, w, f)
-        xw = block_windows(x, tile).reshape(b * nt, w, 3)
-        dh, dx = self.edge_kk(hw, h.reshape(b * nt, tile, f), xw, x.reshape(b * nt, tile, 3),
-                              adj.reshape(b * nt, w, tile))
-        return dh.reshape(b, nt * tile, f), dx.reshape(b, nt * tile, 3)
-
-    def _dense(self, name: str):
-        """The call that takes a dense kl or lk grid: the dense module, or
-        the kNN-pair module's kernel entry for the kNN mask."""
-        mod = getattr(self, name)
-        return mod if self.dense_kl else mod.kernel
 
     def forward(self, h, x, edges, z, masks, kp_shard=None):
         agg_h = {"lig": 0.0, "kp": 0.0}
@@ -133,31 +100,14 @@ class EGNNConvLayer(nn.Module):
         # the replicated ligand as the keypoint edges of this rank see it
         h_lig, x_lig = (h["lig"], x["lig"]) if sh is None else sh.enter(h["lig"], x["lig"])
         h_kp, x_kp, h_lig, x_lig = device_mark("kl", h["kp"], x["kp"], h_lig, x_lig)
-        if "kl" in edges:
-            kl = self._dense("edge_kl")(h_kp, h_lig, x_kp, x_lig, edges["kl"])
-        else:
-            idx, valid = edges["kl_pairs"]
-            kl = self.edge_kl(h_kp, h_lig, x_kp, x_lig, idx, valid)
+        kl = self.edge_kl(h_kp, h_lig, x_kp, x_lig, edges["kl"])
         add("lig", kl if sh is None else sh.reduce(*kl))
         if self.update_kp_feat:
-            if "lk" in edges:
-                add("kp", self._dense("edge_lk")(h_lig, h_kp, x_lig, x_kp, edges["lk"]))
-            else:
-                add("kp", self.edge_lk(h_kp, h_lig, x_kp, x_lig, idx, valid))
-            kk = edges["kk"]
+            add("kp", self.edge_lk(h_lig, h_kp, x_lig, x_kp, edges["lk"]))
             h_src, x_src = (h["kp"], x["kp"]) if sh is None else sh.gather(h["kp"], x["kp"])
             h_src, x_src, h_kp, x_kp = device_mark("kk", h_src, x_src, h["kp"], x["kp"])
-            if isinstance(kk, dict):
-                out = self._block_kk(h_src, x_src, kk["block"])
-                if sh is not None:
-                    lo, hi = sh.bounds(h_src.shape[1])
-                    out = (out[0][:, lo:hi], out[1][:, lo:hi])
-                add("kp", out)
-            elif isinstance(kk, tuple):
-                idx, valid = kk
-                add("kp", self.kk_nbr(h_src, h_kp, x_src, x_kp, idx, valid))
-            else:
-                add("kp", self.edge_kk(h_src, h_kp, x_src, x_kp, kk))
+            kk = self.edge_kk(h_src, h_kp, x_src, x_kp, edges["kk"])
+            add("kp", kk if sh is None else sh.dst_rows(edges["kk"], *kk))
         agg_h["lig"], agg_h["kp"], agg_x["lig"], agg_x["kp"] = device_mark(
             "rest", agg_h["lig"], agg_h["kp"], agg_x["lig"], agg_x["kp"])
 
@@ -196,7 +146,7 @@ class EGNNDynamics(nn.Module):
         for i in range(n_layers):
             self.add_module(f"conv{i}", EGNNConvLayer(
                 hidden_nf + 1, gen, use_tanh=use_tanh, update_kp_feat=update_kp_feat, norm=norm,
-                dtype=compute_dtype, dense_kl=kl_k <= 0))
+                dtype=compute_dtype))
         self.lig_decoder = MLP(hidden_nf, [2 * atom_nf, atom_nf], ["silu", ""], gen)
 
     def kp_row_modules(self):
@@ -211,7 +161,7 @@ class EGNNDynamics(nn.Module):
     def on_kernel(self, *inputs) -> bool:
         """Whether the kNN kl and lk edges and a neighbor-list kk of a call on
         `inputs` go through the edge kernel as dense masks: the tensors where
-        the kernel runs (CUDA) and nothing recording autograd. The kNN modules
+        the kernel runs (CUDA) and nothing recording autograd. edge_kl, edge_lk
         and edge_kk are always in the kernel's configuration."""
         return kernel_device(inputs[0].device) and not records_grad(self, *inputs)
 
@@ -231,36 +181,34 @@ class EGNNDynamics(nn.Module):
             ll = dense_knn_adjacency(lig_x, lig_mask, lig_x, lig_mask, self.ll_k, per="dst", exclude_self=True)
         else:
             ll = dense_radius_adjacency(lig_x, lig_mask, lig_x, lig_mask, self.ll_cutoff, exclude_self=True)
-        edges: Dict[str, object] = {"ll": ll}
         on_kernel = self.on_kernel(lig_x, lig_h, kp_x, kp_h, t)
         if self.kl_k > 0:
             profiling.count("dynamics.kl_route_kernel" if on_kernel else "dynamics.kl_route_pairs",
                             self.n_layers * (1 + int(self.update_kp_feat)))
             if on_kernel:
                 # each keypoint's k nearest ligand atoms as a dense mask (a rank's keypoint rows give its own)
-                edges["kl"] = dense_knn_adjacency(kp_x, kp_mask, lig_x, lig_mask, self.kl_k, per="src")
-                edges["lk"] = edges["kl"].transpose(1, 2).contiguous()
-                e_kl = torch.sum(edges["kl"], dim=(1, 2))
+                kl = dense_knn_adjacency(kp_x, kp_mask, lig_x, lig_mask, self.kl_k, per="src")
+                lk = kl.transpose(1, 2).contiguous()
             else:
                 # the same edge set as an explicit pair list
                 kl_idx, _dist, kl_valid = knn_indices(lig_x, lig_mask, kp_x, kp_mask, self.kl_k)
-                kl_valid = kl_valid & kp_mask[:, :, None]
-                edges["kl_pairs"] = (kl_idx, kl_valid)
-                e_kl = torch.sum(kl_valid, dim=(1, 2))
+                kl = PairList(kl_idx, kl_valid & kp_mask[:, :, None])
+                lk = transpose(kl)
         else:
-            edges["kl"] = dense_radius_adjacency(kp_x, kp_mask, lig_x, lig_mask, self.kl_cutoff)
-            edges["lk"] = edges["kl"].transpose(1, 2)
-            e_kl = torch.sum(edges["kl"], dim=(1, 2))
+            kl = dense_radius_adjacency(kp_x, kp_mask, lig_x, lig_mask, self.kl_cutoff)
+            lk = transpose(kl)
+        edges: Dict[str, object] = {"ll": ll, "kl": kl, "lk": lk}
+        e_kl = edge_count(kl)
         if self.update_kp_feat:
             if kk_edges is None:
                 raise ValueError("kk_edges required when update_kp_feat=True")
             edges["kk"] = kk_edges
-            if isinstance(kk_edges, tuple):
+            if list_cap(kk_edges):
                 profiling.count("dynamics.kk_route_kernel" if on_kernel else "dynamics.kk_route_list",
                                 self.n_layers)
                 if on_kernel:
                     # sources are every keypoint (a rank's list indexes the global rows): (B, K, K / n)
-                    edges["kk"] = neighbor_list_adjacency(*kk_edges, k if sh is None else k * sh.size)
+                    edges["kk"] = kk_edges.adjacency(k if sh is None else k * sh.size)
 
         z = {}
         if self.message_norm == 0 and self.z_semantics == "executed":
@@ -269,18 +217,15 @@ class EGNNDynamics(nn.Module):
             if sh is not None:
                 e_kl = sh.count(e_kl)
             n_lig = torch.clamp(torch.sum(lig_mask, dim=1), min=1)
-            e_lig = torch.sum(ll, dim=(1, 2)) + e_kl
+            e_lig = edge_count(ll) + e_kl
             z["lig"] = (e_lig / n_lig + 1.0)[:, None, None]
             if self.update_kp_feat:
+                # kk as encoded: a neighbor list counts its valid slots on either route
                 n_kp = torch.sum(kp_mask, dim=1)
-                kk = kk_edges  # a neighbor list counts its valid slots on either route
-                if isinstance(kk, dict):  # whole on every rank
-                    e_kk = torch.sum(kk["block"], dim=(1, 2, 3))
+                if sh is None:
+                    e_kk = edge_count(kk_edges)
                 else:
-                    e_kk = torch.sum(kk[1] if isinstance(kk, tuple) else kk, dim=(1, 2))
-                if sh is not None:
-                    n_kp = sh.count(n_kp)
-                    e_kk = e_kk if isinstance(kk, dict) else sh.count(e_kk)
+                    n_kp, e_kk = sh.count(n_kp), sh.edge_count(kk_edges)
                 n_kp = torch.clamp(n_kp, min=1)
                 z["kp"] = ((e_kl + e_kk) / n_kp + 1.0)[:, None, None]
             else:

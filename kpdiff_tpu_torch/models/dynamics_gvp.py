@@ -10,9 +10,10 @@ by it.
 Edges: ll is a dense grid rebuilt every call (the radius graph, or with
 ll_k > 0 each ligand atom's ll_k nearest ligand atoms), kl and lk a kNN
 pair list (`PairList`, kl_k per keypoint) or with kl_k == 0 the dense
-radius grid on the kl cutoff and its transpose, kk the encoder's
-structure, dense (B, K, K), a neighbor list (idx, valid) or the banded
-block layout {'block': adj}. Every GVP runs in plain PyTorch: there is no TPU kernel on
+radius grid on the kl cutoff and its transpose, kk the encoder's edge
+set, dense (B, K, K), a `NbrList` or the banded block layout `Blocks`
+(ops/edge_sets.py); each edge type's `GVPEdgeMessages` runs the form of
+its edge set. Every GVP runs in plain PyTorch: there is no TPU kernel on
 this path. Dropout (training only) draws its masks from a torch.Generator
 before each conv, so that `remat` (torch.utils.checkpoint per conv)
 recomputes the backward with the same masks.
@@ -27,7 +28,7 @@ masks are drawn for every keypoint and sliced, as the unsharded run draws them.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -44,27 +45,11 @@ from kpdiff_tpu_torch.models.gvp import (
     gvp_dropout_masks,
 )
 from kpdiff_tpu_torch.models.nn import LayerNorm, TorchLinear
+from kpdiff_tpu_torch.ops.edge_sets import PairList, edge_count, transpose
 from kpdiff_tpu_torch.ops.neighbors import dense_knn_adjacency, dense_radius_adjacency, knn_indices
-from kpdiff_tpu_torch.ops.spatial import block_windows
 from kpdiff_tpu_torch.utils.profiling import device_mark
 
 EDGE_SLOT = {"ll": "ll", "kl": "kl", "lk": "kl", "kk": "kk"}  # each edge type's device-timer slot
-
-
-class PairList(NamedTuple):
-    """kNN pair list of kl and lk: (B, K, k) ligand indices and their valid mask."""
-
-    idx: torch.Tensor
-    valid: torch.Tensor
-
-
-def _edge_count(a) -> torch.Tensor:
-    """Edges per graph (B,) of any edge structure."""
-    if isinstance(a, dict):
-        return torch.sum(a["block"], dim=(1, 2, 3)).float()
-    if isinstance(a, PairList):
-        return torch.sum(a.valid, dim=(1, 2)).float()
-    return torch.sum(a[1] if isinstance(a, tuple) else a, dim=(1, 2)).float()
 
 
 class GVPMultiEdgeConv(nn.Module):
@@ -111,29 +96,9 @@ class GVPMultiEdgeConv(nn.Module):
     def _edge(self, src, ename, dst, node_data, a, kp_src=None, reduce=None):
         """kp_src: the keypoints as kk sources (a kp-sharded rank's gathered
         rows); reduce: the kl sums' collective (ShardContext.reduce)."""
-        mod = getattr(self, f"message_{ename}")
         h_s, x_s, v_s = kp_src if (kp_src is not None and src == dst == "kp") else node_data[src]
         h_d, x_d, v_d = node_data[dst]
-        if isinstance(a, PairList):
-            h_a, x_a, v_a = node_data["kp"]
-            h_o, x_o, v_o = node_data["lig"]
-            return mod.pairs(h_a, v_a, x_a, h_o, v_o, x_o, a.idx, a.valid, anchor_is_src=src == "kp",
-                             reduce=reduce)
-        if isinstance(a, dict):
-            if kp_src is not None:  # the block layout runs on every keypoint
-                h_d, x_d, v_d = kp_src
-            blk = a["block"]
-            b, nt, w, tile = blk.shape
-            S, V = h_s.shape[-1], v_s.shape[-2]
-            ds, dv = mod.dense(block_windows(h_s, tile).reshape(b * nt, w, S),
-                               block_windows(v_s, tile).reshape(b * nt, w, V, 3),
-                               block_windows(x_s, tile).reshape(b * nt, w, 3),
-                               h_d.reshape(b * nt, tile, S), v_d.reshape(b * nt, tile, V, 3),
-                               x_d.reshape(b * nt, tile, 3), blk.reshape(b * nt, w, tile))
-            return ds.reshape(b, nt * tile, S), dv.reshape(b, nt * tile, V, 3)
-        if isinstance(a, tuple):
-            return mod.nbr(h_s, v_s, x_s, h_d, v_d, x_d, *a)
-        return mod.dense(h_s, v_s, x_s, h_d, v_d, x_d, a, reduce=reduce)
+        return getattr(self, f"message_{ename}")(h_s, v_s, x_s, h_d, v_d, x_d, a, reduce=reduce)
 
     def forward(self, node_data, adj, masks, drop=None, kp_shard=None):
         """node_data: ntype -> (scalars, positions, vectors); drop: the masks
@@ -158,9 +123,8 @@ class GVPMultiEdgeConv(nn.Module):
             else:
                 ds, dv = self._edge(src, ename, dst, data, adj[ename], kp_src=kp_src,
                                     reduce=sh.reduce if dst == "lig" else None)
-                if isinstance(adj[ename], dict):
-                    lo, hi = sh.bounds(kp_src[0].shape[1])
-                    ds, dv = ds[:, lo:hi], dv[:, lo:hi]
+                if dst == "kp":
+                    ds, dv = sh.dst_rows(adj[ename], ds, dv)
             agg_s[dst] = agg_s[dst] + ds
             agg_v[dst] = agg_v[dst] + dv
         n = len(self.dst_ntypes)
@@ -174,12 +138,11 @@ class GVPMultiEdgeConv(nn.Module):
                 s_msg, v_msg = agg_s[ntype], agg_v[ntype]
             elif self.message_norm == 0:
                 n_nodes = torch.sum(masks[ntype], dim=1)
-                counts = [_edge_count(adj[e[1]]) for e in self.etypes if e[2] == ntype]
-                if sh is not None:  # edges with a keypoint end are this rank's; a block kk is whole
-                    if ntype == "kp":
-                        n_nodes = sh.count(n_nodes)
-                    counts = [c if (e[0] == e[2] == "lig" or isinstance(adj[e[1]], dict)) else sh.count(c)
-                              for c, e in zip(counts, [e for e in self.etypes if e[2] == ntype])]
+                # edges with a keypoint end are a kp-sharded rank's (ShardContext.edge_count)
+                counts = [(edge_count if sh is None or e[0] == e[2] == "lig" else sh.edge_count)(adj[e[1]]).float()
+                          for e in self.etypes if e[2] == ntype]
+                if sh is not None and ntype == "kp":
+                    n_nodes = sh.count(n_nodes)
                 n_nodes = torch.clamp(n_nodes, min=1).float()
                 n_edges = sum(counts)
                 norm = (n_edges / n_nodes + 1.0)[:, None, None]
@@ -291,7 +254,7 @@ class GVPDynamics(nn.Module):
         if self.update_kp:
             if kk_edges is None:
                 raise ValueError("kk_edges required when update_kp=True")
-            adj["lk"] = kl if isinstance(kl, PairList) else kl.transpose(1, 2)
+            adj["lk"] = transpose(kl)
             adj["kk"] = kk_edges
 
         node_data = {"lig": (lig_s, lig_x, lig_v), "kp": (kp_s, kp_x, kp_v)}

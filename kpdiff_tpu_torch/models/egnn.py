@@ -1,5 +1,6 @@
-"""E(3)-equivariant message passing over dense pair grids, kNN pair lists and
-neighbor lists (kpdiff_tpu/models/egnn.py).
+"""E(3)-equivariant message passing over the edge sets of ops/edge_sets.py:
+dense pair grids, kNN pair lists, neighbor lists and block windows
+(kpdiff_tpu/models/egnn.py).
 
 Executed semantics kept from the JAX package (and its reference):
   * dij = |diff + 1e-30| with masked pairs' diffs zeroed first;
@@ -22,6 +23,7 @@ from torch import nn
 
 from kpdiff_tpu_torch.models.nn import MLP, LayerNorm, compute_dtype, uniform_, xavier_uniform_scaled
 from kpdiff_tpu_torch.ops.cuda.egnn_edge import egnn_edge_dense, egnn_edge_dense_plain, pack_w2, row_stride
+from kpdiff_tpu_torch.ops.edge_sets import Blocks, NbrList, PairList, refuse
 from kpdiff_tpu_torch.ops.neighbors import gather_rows
 
 
@@ -31,17 +33,47 @@ def records_grad(module: nn.Module, *tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in itertools.chain(module.parameters(), tensors))
 
 
-class _EdgeParams(nn.Module):
-    """Parameter scheme shared by the three EGNN edge modules, and their
-    route through the edge kernel's entry (`kernel`), open to those in the
-    dynamics' configuration (`kernel_ok`: two coord hidden layers,
-    coordinates computed, no edge features). Subclasses set `cd`,
-    `use_tanh` and `coords_range`."""
+def _offsets(diff, mask):
+    """Pair offsets zeroed where `mask` is not set, and their lengths |diff + 1e-30| (..., 1)."""
+    diff = torch.where(mask[..., None], diff, 0.0)
+    return diff, torch.linalg.norm(diff + 1e-30, dim=-1, keepdim=True)
 
-    def __init__(self, f_in: int, hidden_size: int, gen: torch.Generator, coord_hidden_layers: int = 2,
-                 compute_coord: bool = True, edge_feat_size: int = 0):
+
+class EGNNEdge(nn.Module):
+    """EGNN messages of one edge type (kpdiff_tpu/models/egnn.py:118-686):
+    one parameter set and three forms, `dense` over a (B, Ns, Nd) pair grid,
+    `nbr` over a destination-major neighbor list and `pairs` over a kNN pair
+    list anchored at one node set. `forward` takes an edge set in any form
+    of ops/edge_sets.py and runs the form it names; a `Blocks` runs `dense`
+    on its windows.
+
+    `dense` has three routes. In the dynamics' configuration (`kernel_ok`:
+    two coord hidden layers, coordinates computed, no edge features) the
+    per-node first-layer projections are f32 matrix products, as in the JAX
+    package's Pallas path, and the per-pair work goes through
+    `ops/cuda/egnn_edge.py` (`kernel`): the CUDA kernel on a CUDA tensor,
+    its plain version on a CPU tensor. Where autograd records (grad enabled
+    and a parameter or input that requires grad) it runs the plain version
+    on its parameters instead, so that training gets gradients; sampling
+    and encoding run under no_grad and take the kernel. The encoder's
+    configuration (edge features, one coord hidden layer, or
+    compute_coord=False for fix_pos) never takes the kernel, as the JAX
+    package's `pallas_ok` never does: it runs the JAX package's XLA path in
+    plain PyTorch on every device (`_generic`).
+
+    `nbr` and `pairs` run in plain PyTorch. Where the edge kernel is taken
+    the dynamics hands the same edge sets in as dense masks instead
+    (models/dynamics_egnn.py).
+    """
+
+    def __init__(self, f_in: int, hidden_size: int, gen: torch.Generator, use_tanh: bool = False,
+                 coords_range: float = 10.0, coord_hidden_layers: int = 2, compute_coord: bool = True,
+                 edge_feat_size: int = 0, dtype: str = "float32"):
         super().__init__()
         h = hidden_size
+        self.use_tanh = use_tanh
+        self.coords_range = float(coords_range)
+        self.cd = compute_dtype(dtype)
         self.coord_hidden_layers = coord_hidden_layers
         self.compute_coord = compute_coord
         self.edge_feat_size = edge_feat_size
@@ -121,51 +153,23 @@ class _EdgeParams(nn.Module):
             w["w2c"], w["b2c"], w["wout"], x_src.to(f32).contiguous(), x_dst.to(f32).contiguous(),
             adj.contiguous(), use_tanh=self.use_tanh, coords_range=self.coords_range, compute_dtype=self.cd)
 
+    def forward(self, h_src, h_dst, x_src, x_dst, edges, edge_feat=None):
+        """-> (agg_h (B, Nd, H) f32, agg_x (B, Nd, 3)) of the edge set `edges`."""
+        if torch.is_tensor(edges):
+            return self.dense(h_src, h_dst, x_src, x_dst, edges, edge_feat)
+        if isinstance(edges, NbrList):
+            return self.nbr(h_src, h_dst, x_src, x_dst, edges.idx, edges.valid, edge_feat)
+        if isinstance(edges, PairList):
+            if edges.anchor_is_src:
+                return self.pairs(h_src, h_dst, x_src, x_dst, edges.idx, edges.valid, anchor_is_src=True)
+            return self.pairs(h_dst, h_src, x_dst, x_src, edges.idx, edges.valid, anchor_is_src=False)
+        if isinstance(edges, Blocks):  # square over one node set: the sources'
+            (hs, xs), (hd, xd), adj, ef = edges.grid((h_src, x_src), edge_feat)
+            return edges.ungrid(*self.dense(hs, hd, xs, xd, adj, ef))
+        refuse(edges)
 
-def _gate(m, attn_w, attn_b, cd):
-    """sigmoid(m . attn_w + attn_b): compute-dtype products summed in f32."""
-    return torch.sigmoid(torch.sum(m * attn_w[:, 0].to(cd), dim=-1, dtype=torch.float32)
-                         + attn_b[0].float())
-
-
-def _coord_scalar(mod, c, cd, use_tanh, coords_range):
-    """Coordinate-chain tail from the first hidden layer c to the clamped scalar."""
-    for cw, cb in mod.coord_layers():
-        c = F.silu(c @ cw.to(cd) + cb.to(cd))
-    scalar = torch.sum(c * mod.coord_out_w[:, 0].to(cd), dim=-1, dtype=torch.float32)
-    if use_tanh:
-        scalar = torch.tanh(scalar) * coords_range
-    return scalar
-
-
-class EGNNEdgeDense(_EdgeParams):
-    """EGNN messages for one edge type over a dense (B, Ns, Nd) pair grid
-    (kpdiff_tpu/models/egnn.py:118-326).
-
-    In the dynamics' configuration (two coord hidden layers, coordinates
-    computed, no edge features) the per-node first-layer projections are f32
-    matrix products here, as in the JAX package's Pallas path, and the
-    per-pair work goes through `ops/cuda/egnn_edge.py`: the CUDA kernel on a
-    CUDA tensor, its plain version on a CPU tensor. Where autograd records
-    (grad enabled and a parameter or input that requires grad) the module
-    runs the plain version on its parameters instead, so that training gets
-    gradients; sampling and encoding run under no_grad and take the kernel.
-
-    The encoder's configuration (edge features, one coord hidden layer, or
-    compute_coord=False for fix_pos) never takes the kernel, as the JAX
-    package's `pallas_ok` never does: it runs the JAX package's XLA path in
-    plain PyTorch on every device (`_generic`).
-    """
-
-    def __init__(self, f_in: int, hidden_size: int, gen: torch.Generator, use_tanh: bool = False,
-                 coords_range: float = 10.0, coord_hidden_layers: int = 2, compute_coord: bool = True,
-                 edge_feat_size: int = 0, dtype: str = "float32"):
-        super().__init__(f_in, hidden_size, gen, coord_hidden_layers, compute_coord, edge_feat_size)
-        self.use_tanh = use_tanh
-        self.coords_range = float(coords_range)
-        self.cd = compute_dtype(dtype)
-
-    def forward(self, h_src, h_dst, x_src, x_dst, adj, edge_feat=None):
+    def dense(self, h_src, h_dst, x_src, x_dst, adj, edge_feat=None):
+        """Messages over a dense (B, Ns, Nd) pair grid, by the route above."""
         if not self.kernel_ok:
             return self._generic(h_src, h_dst, x_src, x_dst, adj, edge_feat)
         if not records_grad(self, h_src, h_dst, x_src, x_dst):
@@ -183,148 +187,99 @@ class EGNNEdgeDense(_EdgeParams):
             x_src.to(f32).contiguous(), x_dst.to(f32).contiguous(), adj.contiguous(),
             use_tanh=self.use_tanh, coords_range=self.coords_range, compute_dtype=self.cd)
 
+    def _pair_terms(self, preact, mask, dij):
+        """The per-pair terms of the pair pre-activations `preact(w_s, w_d,
+        w_dij, bias)` of both chains: the edge messages m, their coefficients
+        mask x gate, and with compute_coord the coordinate coefficients
+        mask x scalar / (dij + 1) (else None). Products in the compute dtype,
+        the gate's and the scalar's sums in f32."""
+        cd, f32 = self.cd, torch.float32
+        m = F.silu(preact(self.edge_w_src, self.edge_w_dst, self.edge_w_dij, self.edge_b))
+        m = F.silu(m @ self.edge_lin2_w.to(cd) + self.edge_lin2_b.to(cd))
+        gate = torch.sigmoid(torch.sum(m * self.attn_w[:, 0].to(cd), dim=-1, dtype=f32) + self.attn_b[0].float())
+        coeff = mask.to(m.dtype) * gate.to(m.dtype)
+        if not self.compute_coord:
+            return m, coeff, None
+        c = F.silu(preact(self.coord_w_src, self.coord_w_dst, self.coord_w_dij, self.coord_b))
+        for cw, cb in self.coord_layers():
+            c = F.silu(c @ cw.to(cd) + cb.to(cd))
+        scalar = torch.sum(c * self.coord_out_w[:, 0].to(cd), dim=-1, dtype=f32)
+        if self.use_tanh:
+            scalar = torch.tanh(scalar) * self.coords_range
+        return m, coeff, mask.to(f32) * scalar / (dij[..., 0] + 1.0)
+
     def _generic(self, h_src, h_dst, x_src, x_dst, adj, edge_feat=None):
         """The JAX package's dense XLA path (no split t-channel): pair
         pre-activations and products in the compute dtype, reductions in f32."""
-        cd, f32 = self.cd, torch.float32
-        diff = torch.where(adj[..., None], x_src[:, :, None, :] - x_dst[:, None, :, :], 0.0)
-        dij = torch.linalg.norm(diff + 1e-30, dim=-1, keepdim=True)  # (B, Ns, Nd, 1)
+        cd = self.cd
+        diff, dij = _offsets(x_src[:, :, None, :] - x_dst[:, None, :, :], adj)  # (B, Ns, Nd, .)
         scalars = dij if edge_feat is None else torch.cat([dij, edge_feat.to(dij.dtype)], dim=-1)
 
-        def pair_preact(w_s, w_d, w_dij, bias):
+        def preact(w_s, w_d, w_dij, bias):
             return ((h_src.to(cd) @ w_s.to(cd))[:, :, None, :]
                     + (h_dst.to(cd) @ w_d.to(cd))[:, None, :, :]
                     + scalars.to(cd) @ w_dij.to(cd)
                     + bias.to(cd))
 
-        m = F.silu(pair_preact(self.edge_w_src, self.edge_w_dst, self.edge_w_dij, self.edge_b))
-        m = F.silu(m @ self.edge_lin2_w.to(cd) + self.edge_lin2_b.to(cd))
-        gate = _gate(m, self.attn_w, self.attn_b, cd)
-        coeff = adj.to(m.dtype) * gate.to(m.dtype)
+        m, coeff, coeff_x = self._pair_terms(preact, adj, dij)
         agg_h = torch.einsum("bsd,bsdh->bdh", coeff.float(), m.float())
-        if not self.compute_coord:
+        if coeff_x is None:
             return agg_h, torch.zeros_like(x_dst)
-        c = F.silu(pair_preact(self.coord_w_src, self.coord_w_dst, self.coord_w_dij, self.coord_b))
-        scalar = _coord_scalar(self, c, cd, self.use_tanh, self.coords_range)
-        coeff_x = adj.to(f32) * scalar / (dij[..., 0] + 1.0)
         return agg_h, torch.einsum("bsd,bsdc->bdc", coeff_x, diff)
 
-
-class EGNNEdgeKNNPairs(_EdgeParams):
-    """EGNN edge math over a kNN pair list anchored at one node set
-    (kpdiff_tpu/models/egnn.py:329-531): idx (B, K, k) indexes the other set.
-    anchor_is_src=True (kl): the anchor sends, messages land on the gathered
-    nodes; False (lk): the gathered nodes send to the anchor.
-
-    `forward` is the pair list in plain PyTorch (training, the CPU). Where
-    the edge kernel is taken (CUDA tensors, no autograd recording) the
-    dynamics hands the same edge set to `kernel` as a dense mask instead
-    (models/dynamics_egnn.py): kl (B, K, Nl) with the anchor as source, lk
-    its transpose with the anchor as destination. Either way the anchor
-    takes `w_src` for kl and `w_dst` for lk, as EGNNEdgeDense's sources and
-    destinations do."""
-
-    def __init__(self, f_in: int, hidden_size: int, gen: torch.Generator, anchor_is_src: bool,
-                 use_tanh: bool = False, coords_range: float = 10.0, dtype: str = "float32"):
-        super().__init__(f_in, hidden_size, gen)
-        self.anchor_is_src = anchor_is_src
-        self.use_tanh = use_tanh
-        self.coords_range = float(coords_range)
-        self.cd = compute_dtype(dtype)
-
-    def forward(self, h_anchor, h_other, x_anchor, x_other, idx, valid):
+    def pairs(self, h_anchor, h_other, x_anchor, x_other, idx, valid, anchor_is_src: bool):
+        """Messages over a kNN pair list idx (B, K, k) into the other node set
+        (kpdiff_tpu/models/egnn.py:329-531). anchor_is_src (kl): the anchor
+        sends, messages land on the gathered nodes; otherwise (lk) the
+        gathered nodes send to the anchor. The anchor takes `w_src` for kl
+        and `w_dst` for lk, as `dense`'s sources and destinations do."""
         cd, f32 = self.cd, torch.float32
         b, K, k = idx.shape
-        n_other = h_other.shape[1]
-        if self.anchor_is_src:
-            w_anchor, w_gathered = self.edge_w_src, self.edge_w_dst
-            cw_anchor, cw_gathered = self.coord_w_src, self.coord_w_dst
-        else:
-            w_anchor, w_gathered = self.edge_w_dst, self.edge_w_src
-            cw_anchor, cw_gathered = self.coord_w_dst, self.coord_w_src
-
         h_g = gather_rows(h_other.to(cd), idx)
         x_g = gather_rows(x_other, idx)
         x_a = x_anchor[:, :, None, :]
-        diff = x_a - x_g if self.anchor_is_src else x_g - x_a
-        diff = torch.where(valid[..., None], diff, 0.0)
-        dij = torch.linalg.norm(diff + 1e-30, dim=-1, keepdim=True)  # (B, K, k, 1)
+        diff, dij = _offsets(x_a - x_g if anchor_is_src else x_g - x_a, valid)  # (B, K, k, .)
 
-        def preact(wa, wg, wdij, bias):
-            return ((h_anchor.to(cd) @ wa.to(cd))[:, :, None, :]
-                    + h_g @ wg.to(cd)
-                    + dij.to(cd) * wdij[0].to(cd)
+        def preact(w_s, w_d, w_dij, bias):
+            w_anchor, w_gathered = (w_s, w_d) if anchor_is_src else (w_d, w_s)
+            return ((h_anchor.to(cd) @ w_anchor.to(cd))[:, :, None, :]
+                    + h_g @ w_gathered.to(cd)
+                    + dij.to(cd) * w_dij[0].to(cd)
                     + bias.to(cd))
 
-        m = F.silu(preact(w_anchor, w_gathered, self.edge_w_dij, self.edge_b))
-        m = F.silu(m @ self.edge_lin2_w.to(cd) + self.edge_lin2_b.to(cd))
-        gate = _gate(m, self.attn_w, self.attn_b, cd)
-        coeff = gate.to(m.dtype) * valid.to(m.dtype)  # (B, K, k)
-        c = F.silu(preact(cw_anchor, cw_gathered, self.coord_w_dij, self.coord_b))
-        scalar = _coord_scalar(self, c, cd, self.use_tanh, self.coords_range)
-        coeff_x = valid.to(f32) * scalar / (dij[..., 0] + 1.0)
+        m, coeff, coeff_x = self._pair_terms(preact, valid, dij)
+        if not anchor_is_src:
+            return torch.einsum("bek,bekh->beh", coeff.float(), m.float()), torch.einsum("bek,bekc->bec", coeff_x, diff)
+        # scatter onto the gathered side, summed in f32
+        flat = idx.reshape(b, K * k)
+        msg = (coeff[..., None].float() * m.float()).reshape(b, K * k, -1)
+        mx = (coeff_x[..., None] * diff).reshape(b, K * k, 3)
+        n_other = h_other.shape[1]
+        agg_h = torch.zeros((b, n_other, msg.shape[-1]), dtype=f32, device=msg.device)
+        agg_x = torch.zeros((b, n_other, 3), dtype=f32, device=mx.device)
+        return (agg_h.scatter_add_(1, flat[..., None].expand_as(msg), msg),
+                agg_x.scatter_add_(1, flat[..., None].expand_as(mx), mx))
 
-        if self.anchor_is_src:
-            # scatter onto the gathered side, summed in f32
-            flat = idx.reshape(b, K * k)
-            msg = (coeff[..., None].float() * m.float()).reshape(b, K * k, -1)
-            agg_h = torch.zeros((b, n_other, msg.shape[-1]), dtype=f32, device=msg.device)
-            agg_h = agg_h.scatter_add_(1, flat[..., None].expand_as(msg), msg)
-            mx = (coeff_x[..., None] * diff).reshape(b, K * k, 3)
-            agg_x = torch.zeros((b, n_other, 3), dtype=f32, device=mx.device)
-            agg_x = agg_x.scatter_add_(1, flat[..., None].expand_as(mx), mx)
-            return agg_h, agg_x
-        agg_h = torch.einsum("bek,bekh->beh", coeff.float(), m.float())
-        agg_x = torch.einsum("bek,bekc->bec", coeff_x, diff)
-        return agg_h, agg_x
-
-
-class EGNNEdgeNbrList(_EdgeParams):
-    """EGNN edge math over a destination-major neighbor list
-    (kpdiff_tpu/models/egnn.py:534-686): nbr_idx (B, Nd, K) into the sources,
-    aggregation is a masked sum over K, in plain PyTorch.
-
-    The dynamics' kk_nbr runs it in training and on the CPU. Where the edge
-    kernel is taken (CUDA tensors, no autograd recording) the dynamics
-    scatters the same list into a dense (B, Ns, Nd) mask for edge_kk, whose
-    parameters kk_nbr shares (models/dynamics_egnn.py). The learned EGNN
-    encoder's neighbor-list layout runs it on every device."""
-
-    def __init__(self, f_in: int, hidden_size: int, gen: torch.Generator, use_tanh: bool = False,
-                 coords_range: float = 10.0, coord_hidden_layers: int = 2, compute_coord: bool = True,
-                 edge_feat_size: int = 0, dtype: str = "float32"):
-        super().__init__(f_in, hidden_size, gen, coord_hidden_layers, compute_coord, edge_feat_size)
-        self.use_tanh = use_tanh
-        self.coords_range = float(coords_range)
-        self.cd = compute_dtype(dtype)
-
-    def forward(self, h_src, h_dst, x_src, x_dst, nbr_idx, nbr_valid, edge_feat=None):
-        cd, f32 = self.cd, torch.float32
+    def nbr(self, h_src, h_dst, x_src, x_dst, nbr_idx, nbr_valid, edge_feat=None):
+        """Messages over a destination-major neighbor list nbr_idx (B, Nd, K)
+        into the sources (kpdiff_tpu/models/egnn.py:534-686): a masked sum
+        over K."""
+        cd = self.cd
         h_nbr = gather_rows(h_src, nbr_idx)
-        x_nbr = gather_rows(x_src, nbr_idx)
-        diff = x_nbr - x_dst[:, :, None, :]
-        diff = torch.where(nbr_valid[..., None], diff, 0.0)
-        dij = torch.linalg.norm(diff + 1e-30, dim=-1, keepdim=True)
+        diff, dij = _offsets(gather_rows(x_src, nbr_idx) - x_dst[:, :, None, :], nbr_valid)  # (B, Nd, K, .)
         scalars = dij if edge_feat is None else torch.cat([dij, edge_feat], dim=-1)
 
-        def pair_preact(w_s, w_d, w_dij, bias):
+        def preact(w_s, w_d, w_dij, bias):
             return (h_nbr.to(cd) @ w_s.to(cd)
                     + (h_dst.to(cd) @ w_d.to(cd))[:, :, None, :]
                     + scalars.to(cd) @ w_dij.to(cd)
                     + bias.to(cd))
 
-        m = F.silu(pair_preact(self.edge_w_src, self.edge_w_dst, self.edge_w_dij, self.edge_b))
-        m = F.silu(m @ self.edge_lin2_w.to(cd) + self.edge_lin2_b.to(cd))
-        gate = _gate(m, self.attn_w, self.attn_b, cd)
-        coeff = gate.to(m.dtype) * nbr_valid.to(m.dtype)
+        m, coeff, coeff_x = self._pair_terms(preact, nbr_valid, dij)
         agg_h = torch.sum((m * coeff[..., None]).float(), dim=2)
-        if not self.compute_coord:
+        if coeff_x is None:
             return agg_h, torch.zeros_like(x_dst)
-        c = F.silu(pair_preact(self.coord_w_src, self.coord_w_dst, self.coord_w_dij, self.coord_b))
-        scalar = _coord_scalar(self, c, cd, self.use_tanh, self.coords_range)
-        coeff_x = nbr_valid.to(f32) * scalar / (dij[..., 0] + 1.0)
-        agg_x = torch.einsum("bdk,bdkc->bdc", coeff_x, diff)
-        return agg_h, agg_x
+        return agg_h, torch.einsum("bdk,bdkc->bdc", coeff_x, diff)
 
 
 class NodeUpdate(nn.Module):

@@ -7,9 +7,9 @@ curve (and kept in that order inside the encoder, as in the JAX package),
 then banded windows of 3 * tile sources against each tile of `tile`
 destinations (`choose_tile(n_rec, rr_block_size)`), self-pairs excluded,
 with the same-residue edge feature on the windows. Both layouts share one
-parameter set (`edge_rr`). The block windows run `EGNNEdgeDense` in its
-encoder configuration (edge features, one coord hidden layer), which never
-takes the edge kernel.
+`EGNNEdge` (`edge_rr`), in its encoder configuration (edge features, one
+coord hidden layer), which never takes the edge kernel: the list in its
+`nbr` form, the block windows in its `dense` form.
 
 Executed semantics kept from the JAX package: rk_fc_src serves as both
 query and key (rk_fc_dst exists for parameter parity only); the encoder's
@@ -27,14 +27,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from kpdiff_tpu_torch.models.complex import PaddedComplex
-from kpdiff_tpu_torch.models.egnn import EGNNEdgeDense, EGNNEdgeNbrList
+from kpdiff_tpu_torch.models.egnn import EGNNEdge
 from kpdiff_tpu_torch.models.nn import MLP, LayerNorm, TorchLinear
+from kpdiff_tpu_torch.ops.edge_sets import Blocks, edge_count
 from kpdiff_tpu_torch.ops.geometry import masked_mean
 from kpdiff_tpu_torch.ops.neighbors import gather_rows, knn_indices, radius_neighbor_list
 from kpdiff_tpu_torch.ops.spatial import (
     block_radius_adjacency,
     block_same_residue,
-    block_windows,
     choose_tile,
     spatial_sort_permutation,
 )
@@ -43,37 +43,21 @@ _NEG = -1e30
 
 
 class ReceptorConvLayer(nn.Module):
-    """One EGNN conv over rr edges: a neighbor list (idx, valid), or with
-    layout 'block' the banded windows (adj,) (B, nt, 3 * tile, tile)."""
+    """One EGNN conv over the rr edge set: a `NbrList`, or with rr_layout
+    'block' the banded windows `Blocks` (B, nt, 3 * tile, tile)."""
 
     def __init__(self, f_in: int, hidden_size: int, out_size: int, gen: torch.Generator,
                  use_tanh: bool = True, coords_range: float = 10.0, fix_pos: bool = False,
-                 norm: bool = False, edge_feat_size: int = 0, dtype: str = "float32", layout: str = "nbr"):
+                 norm: bool = False, edge_feat_size: int = 0, dtype: str = "float32"):
         super().__init__()
-        if layout not in ("nbr", "block"):
-            raise ValueError(f"rr_layout {layout!r}: 'nbr' or 'block'")
-        self.layout = layout
-        edge = EGNNEdgeDense if layout == "block" else EGNNEdgeNbrList
-        self.edge_rr = edge(
+        self.edge_rr = EGNNEdge(
             f_in, hidden_size, gen, use_tanh=use_tanh, coords_range=coords_range,
             coord_hidden_layers=1, compute_coord=not fix_pos, edge_feat_size=edge_feat_size, dtype=dtype)
         self.node_mlp = MLP(f_in + hidden_size, [hidden_size, out_size], ["silu", ""], gen)
         self.LayerNorm_0 = LayerNorm(out_size) if norm else None
 
     def forward(self, h, x, mask, rr_edges, z, edge_feat=None):
-        if self.layout == "block":
-            (adj,) = rr_edges
-            b, nt, w, tile = adj.shape
-            n, f = h.shape[1], h.shape[-1]
-            ef = None if edge_feat is None else edge_feat.reshape(b * nt, w, tile, -1)
-            agg_h, agg_x = self.edge_rr(
-                block_windows(h, tile).reshape(b * nt, w, f), h.reshape(b * nt, tile, f),
-                block_windows(x, tile).reshape(b * nt, w, 3), x.reshape(b * nt, tile, 3),
-                adj.reshape(b * nt, w, tile), ef)
-            agg_h, agg_x = agg_h.reshape(b, n, -1), agg_x.reshape(b, n, 3)
-        else:
-            nbr_idx, nbr_valid = rr_edges
-            agg_h, agg_x = self.edge_rr(h, h, x, x, nbr_idx, nbr_valid, edge_feat)
+        agg_h, agg_x = self.edge_rr(h, h, x, x, rr_edges, edge_feat)
         new_h = self.node_mlp(torch.cat([h, agg_h / z], dim=-1))
         if self.LayerNorm_0 is not None:
             new_h = self.LayerNorm_0(new_h)
@@ -95,6 +79,8 @@ class EGNNReceptorEncoder(nn.Module):
             raise ValueError("exactly one of kp_rad / k_closest must be non-zero")
         if n_kk_convs > 0:
             raise NotImplementedError("KeyKeyConv is unfinished in the reference")
+        if rr_layout not in ("nbr", "block"):
+            raise ValueError(f"rr_layout {rr_layout!r}: 'nbr' or 'block'")
         self.K, self.F = n_keypoints, out_n_node_feat
         self.message_norm = message_norm
         self.kp_rad, self.k_closest = kp_rad, k_closest
@@ -112,7 +98,7 @@ class EGNNReceptorEncoder(nn.Module):
             self.add_module(f"rec_conv{i}", ReceptorConvLayer(
                 f_in, hidden_n_node_feat, out_size, gen, use_tanh=use_tanh, coords_range=coords_range,
                 fix_pos=fix_pos, norm=norm, edge_feat_size=1 if use_sameres_feat else 0,
-                dtype=compute_dtype, layout=rr_layout))
+                dtype=compute_dtype))
             f_in = out_size
         Fo, K = out_n_node_feat, n_keypoints
         self.keypoint_embedding = TorchLinear(Fo, Fo * K, gen)
@@ -133,19 +119,16 @@ class EGNNReceptorEncoder(nn.Module):
             x0, h = torch.take_along_dim(x0, perm[..., None], dim=1), torch.take_along_dim(h, perm[..., None], dim=1)
             mask, res = torch.take_along_dim(mask, perm, dim=1), torch.take_along_dim(res, perm, dim=1)
             tile = choose_tile(x0.shape[1], self.rr_block_size)
-            adj = block_radius_adjacency(x0, mask, self.rr_cutoff, tile)
-            rr_edges = (adj,)
-            n_edges = torch.sum(adj, dim=(1, 2, 3)).float()
+            rr_edges = Blocks(block_radius_adjacency(x0, mask, self.rr_cutoff, tile))
             if self.use_sameres_feat:
                 edge_feat = block_same_residue(res, tile).to(h.dtype)
         else:
-            rr_idx, rr_valid = radius_neighbor_list(x0, mask, x0, mask, self.rr_cutoff, self.rr_max_neighbors,
-                                                    exclude_self=True)
-            rr_edges = (rr_idx, rr_valid)
-            n_edges = torch.sum(rr_valid, dim=(1, 2)).float()
+            rr_edges = radius_neighbor_list(x0, mask, x0, mask, self.rr_cutoff, self.rr_max_neighbors,
+                                            exclude_self=True)
             if self.use_sameres_feat:
-                res_nbr = gather_rows(res, rr_idx)
+                res_nbr = gather_rows(res, rr_edges.idx)
                 edge_feat = (res_nbr == res[:, :, None]).to(h.dtype)[..., None]
+        n_edges = edge_count(rr_edges).float()
 
         if self.message_norm == 0:  # no +1 here (receptor_encoder.py:501-506)
             n_rec = torch.clamp(torch.sum(mask, dim=1), min=1).float()

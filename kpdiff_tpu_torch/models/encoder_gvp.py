@@ -34,12 +34,12 @@ from kpdiff_tpu_torch.models.gvp import (
     gvp_dropout_masks,
 )
 from kpdiff_tpu_torch.models.nn import MLP, LayerNorm, TorchLinear
+from kpdiff_tpu_torch.ops.edge_sets import Blocks, NbrList, edge_count
 from kpdiff_tpu_torch.ops.geometry import masked_mean
 from kpdiff_tpu_torch.ops.neighbors import gather_rows, knn_indices, radius_neighbor_list
 from kpdiff_tpu_torch.ops.spatial import (
     block_radius_adjacency,
     block_same_residue,
-    block_windows,
     choose_tile,
     spatial_sort_permutation,
 )
@@ -48,9 +48,9 @@ _NEG = -1e30
 
 
 class GVPEdgeConvNbr(nn.Module):
-    """Single-edge-type GVP conv over a neighbor list (idx, valid) or banded
-    block windows (adj,) of one node set: messages, then a residual update
-    of the destinations (reference gvp.py:170-341)."""
+    """Single-edge-type GVP conv over a `NbrList` or the banded windows
+    `Blocks` of one node set: messages, then a residual update of the
+    destinations (reference gvp.py:170-341)."""
 
     def __init__(self, scalar_size: int, vector_size: int, gen: torch.Generator, n_message_gvps: int = 1,
                  n_update_gvps: int = 1, use_dst_feats: bool = False, edge_feat_size: int = 0,
@@ -69,18 +69,7 @@ class GVPEdgeConvNbr(nn.Module):
                 generator: Optional[torch.Generator] = None):
         h_s, x_s, v_s = src
         h_d, x_d, v_d = dst
-        if len(edges) == 1:  # block windows; source set == destination set
-            (adj,) = edges
-            b, nt, w, tile = adj.shape
-            n, S, V = h_s.shape[1], h_s.shape[-1], v_s.shape[-2]
-            ef = None if edge_feat is None else edge_feat.reshape(b * nt, w, tile, -1)
-            s_msg, v_msg = self.edge.dense(
-                block_windows(h_s, tile).reshape(b * nt, w, S), block_windows(v_s, tile).reshape(b * nt, w, V, 3),
-                block_windows(x_s, tile).reshape(b * nt, w, 3), h_d.reshape(b * nt, tile, S),
-                v_d.reshape(b * nt, tile, V, 3), x_d.reshape(b * nt, tile, 3), adj.reshape(b * nt, w, tile), ef)
-            s_msg, v_msg = s_msg.reshape(b, n, S), v_msg.reshape(b, n, V, 3)
-        else:
-            s_msg, v_msg = self.edge.nbr(h_s, v_s, x_s, h_d, v_d, x_d, *edges, edge_feat)
+        s_msg, v_msg = self.edge(h_s, v_s, x_s, h_d, v_d, x_d, edges, edge_feat)
         s_msg = s_msg / z
         v_msg = v_msg / (z[..., None] if torch.is_tensor(z) else z)
         drop = dropout and self.dropout > 0
@@ -168,18 +157,16 @@ class GVPReceptorEncoder(nn.Module):
         edge_feat = None
         if self.rr_layout == "block":
             tile = choose_tile(nr, self.rr_block_size)
-            adj = block_radius_adjacency(x0, mask, self.rr_cutoff, tile)
-            rr_edges, n_edges = (adj,), torch.sum(adj, dim=(1, 2, 3)).float()
+            rr_edges = Blocks(block_radius_adjacency(x0, mask, self.rr_cutoff, tile))
             if self.use_sameres_feat:
                 edge_feat = block_same_residue(res, tile).to(h.dtype)
         else:
-            rr_idx, rr_valid = radius_neighbor_list(x0, mask, x0, mask, self.rr_cutoff, self.rr_max_neighbors,
-                                                    exclude_self=True)
-            rr_edges, n_edges = (rr_idx, rr_valid), torch.sum(rr_valid, dim=(1, 2)).float()
+            rr_edges = radius_neighbor_list(x0, mask, x0, mask, self.rr_cutoff, self.rr_max_neighbors,
+                                            exclude_self=True)
             if self.use_sameres_feat:
-                edge_feat = (gather_rows(res, rr_idx) == res[:, :, None]).to(h.dtype)[..., None]
+                edge_feat = (gather_rows(res, rr_edges.idx) == res[:, :, None]).to(h.dtype)[..., None]
         n_rec = torch.clamp(torch.sum(mask, dim=1), min=1).float()
-        z = self._z(n_edges, n_rec)
+        z = self._z(edge_count(rr_edges).float(), n_rec)
         for i in range(self.n_rr_convs):
             h, v = getattr(self, f"rr_conv{i}")((h, x0, v), (h, x0, v), rr_edges, z, mask, edge_feat, **drop)
 
@@ -200,10 +187,10 @@ class GVPReceptorEncoder(nn.Module):
         kp_mask = torch.ones((b, K), dtype=torch.bool, device=h.device)
         if self.k_closest > 0:
             rk_idx, _dist, rk_valid = knn_indices(x0, mask, kp_pos, kp_mask, self.k_closest)
+            rk = NbrList(rk_idx, rk_valid)
         else:
-            rk_idx, rk_valid = radius_neighbor_list(x0, mask, kp_pos, kp_mask, self.kp_rad, 10)
-        z_rk = self._z(torch.sum(rk_valid, dim=(1, 2)).float(), float(K))
+            rk = radius_neighbor_list(x0, mask, kp_pos, kp_mask, self.kp_rad, 10)
+        z_rk = self._z(edge_count(rk).float(), float(K))
         for i in range(self.n_rk_convs):
-            kp_h, kp_v = getattr(self, f"rk_conv{i}")((h, x0, v), (kp_h, kp_pos, kp_v), (rk_idx, rk_valid), z_rk,
-                                                      kp_mask, **drop)
+            kp_h, kp_v = getattr(self, f"rk_conv{i}")((h, x0, v), (kp_h, kp_pos, kp_v), rk, z_rk, kp_mask, **drop)
         return cpx.replace(kp_x=kp_pos, kp_h=kp_h, kp_mask=kp_mask, kp_v=kp_v)

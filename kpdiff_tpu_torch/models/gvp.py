@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from kpdiff_tpu_torch.models.nn import LayerNorm, TorchLinear, compute_dtype, torch_bias, torch_kernel, uniform_
+from kpdiff_tpu_torch.ops.edge_sets import Blocks, NbrList, PairList, refuse
 from kpdiff_tpu_torch.ops.geometry import norm_no_nan, rbf_embed
 from kpdiff_tpu_torch.ops.neighbors import gather_rows
 
@@ -246,7 +247,9 @@ class GVPEdgeMessages(nn.Module):
     JAX package's GVPEdgeMessages{Dense,Nbr,KNNPairs}, whose parameters are
     the same: `dense` over a (B, Ns, Nd) adjacency, `nbr` over a
     destination-major neighbor list (B, Nd, K), `pairs` over a kNN pair list
-    (B, K, k) anchored at one node set."""
+    (B, K, k) anchored at one node set. `forward` takes an edge set in any
+    form of ops/edge_sets.py and runs the form it names; a `Blocks` runs
+    `dense` on its windows."""
 
     def __init__(self, scalar_size: int, vector_size: int, gen: torch.Generator, n_message_gvps: int = 3,
                  rbf_dmax: float = 15.0, rbf_dim: int = 16, use_dst_feats: bool = False, edge_feat_size: int = 0,
@@ -262,6 +265,24 @@ class GVPEdgeMessages(nn.Module):
         self.use_dst_feats = use_dst_feats
         self.edge_feat_size = edge_feat_size
         self.agg = agg
+
+    def forward(self, h_src, v_src, x_src, h_dst, v_dst, x_dst, edges, edge_feat=None, reduce=None):
+        """-> (B, Nd, S), (B, Nd, V, 3) in f32 over the edge set `edges`.
+        `reduce`, a kp-sharded rank's collective on its partial sums, as in
+        `dense` (dense and pairs only)."""
+        if torch.is_tensor(edges):
+            return self.dense(h_src, v_src, x_src, h_dst, v_dst, x_dst, edges, edge_feat, reduce=reduce)
+        if isinstance(edges, NbrList):
+            return self.nbr(h_src, v_src, x_src, h_dst, v_dst, x_dst, edges.idx, edges.valid, edge_feat)
+        if isinstance(edges, PairList):
+            src, dst = (h_src, v_src, x_src), (h_dst, v_dst, x_dst)
+            anchor, other = (src, dst) if edges.anchor_is_src else (dst, src)
+            return self.pairs(*anchor, *other, edges.idx, edges.valid, anchor_is_src=edges.anchor_is_src,
+                              reduce=reduce)
+        if isinstance(edges, Blocks):  # square over one node set: the sources'
+            (hs, vs, xs), (hd, vd, xd), adj, ef = edges.grid((h_src, v_src, x_src), edge_feat)
+            return edges.ungrid(*self.dense(hs, vs, xs, hd, vd, xd, adj, ef))
+        refuse(edges)
 
     def _messages(self, diff, valid, h_src, v_src, h_dst, v_dst, edge_feat=None):
         """Messages of the pairs whose (source - destination) offsets are

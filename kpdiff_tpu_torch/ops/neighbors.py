@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from kpdiff_tpu_torch.ops.edge_sets import NbrList
+
 __all__ = [
     "gather_rows",
     "masked_pair_dist2",
@@ -17,7 +19,6 @@ __all__ = [
     "dense_knn_adjacency",
     "knn_indices",
     "radius_neighbor_list",
-    "neighbor_list_adjacency",
 ]
 
 _INF = 1e30
@@ -73,22 +74,11 @@ def knn_indices(x_src, mask_src, x_dst, mask_dst, k: int):
 def radius_neighbor_list(x_src, mask_src, x_dst, mask_dst, radius: float, max_neighbors: int,
                          exclude_self: bool = False):
     """Destination-major list of the (up to) `max_neighbors` nearest sources
-    within `radius`: (idx (B, Nd, K) int64, valid (B, Nd, K) bool)."""
+    within `radius`: NbrList(idx (B, Nd, K) int64, valid (B, Nd, K) bool)."""
     d2 = masked_pair_dist2(x_src, mask_src, x_dst, mask_dst, exclude_self=exclude_self)
     scores = -d2.transpose(1, 2)
     neg_d2, idx = torch.topk(scores, min(max_neighbors, scores.shape[-1]), dim=-1)
-    return idx, (-neg_d2) < float(radius) ** 2
-
-
-def neighbor_list_adjacency(idx, valid, n_src: int) -> torch.Tensor:
-    """The dense (B, Ns, Nd) boolean adjacency of a destination-major
-    neighbor list (idx, valid) (B, Nd, k): source idx[b, d, j] to
-    destination d wherever valid[b, d, j]. A slot that is not valid neither
-    adds nor clears an edge, whatever source its index names."""
-    b, nd, _ = idx.shape
-    adj = torch.zeros((b, nd, n_src + 1), dtype=torch.bool, device=idx.device)
-    adj.scatter_(-1, torch.where(valid, idx, n_src), True)  # slots not valid land in the spare column
-    return adj[..., :n_src].transpose(1, 2).contiguous()
+    return NbrList(idx, (-neg_d2) < float(radius) ** 2)
 
 
 def gather_rows(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

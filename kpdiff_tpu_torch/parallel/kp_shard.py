@@ -36,6 +36,7 @@ import torch.distributed as dist
 from torch.autograd import Function
 
 from kpdiff_tpu_torch.models.complex import PaddedComplex
+from kpdiff_tpu_torch.ops.edge_sets import Blocks, NbrList, as_kk, edge_count, refuse
 
 _gather_fn = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 _scatter_fn = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
@@ -172,6 +173,22 @@ class ShardContext:
         dist.all_reduce(c, group=self.group)
         return c
 
+    def edge_count(self, e) -> torch.Tensor:
+        """Edges per graph of edge set `e` into the keypoints, over every
+        keypoint: this rank's summed over the group, but for the block
+        layout, which every rank holds whole."""
+        c = edge_count(e)
+        return c if isinstance(e, Blocks) else self.count(c)
+
+    def dst_rows(self, e, *outs):
+        """Outputs of edge set `e` into the keypoints -> this rank's rows: the
+        block layout runs on every keypoint (the gathered ones), any other
+        form on this rank's destinations already."""
+        if not isinstance(e, Blocks):
+            return outs
+        lo, hi = self.bounds(outs[0].shape[1])
+        return tuple(o[:, lo:hi] for o in outs)
+
     def gather(self, *xs):
         """This rank's keypoint rows (dim 1) -> every keypoint's."""
         out = _Gather.apply(self.group, self.size, *xs) if self.sharded else xs
@@ -233,11 +250,13 @@ class ShardContext:
         lo, hi = self.bounds(K)
         cpx = cpx.replace(kp_x=self.rows(cpx.kp_x), kp_h=self.rows(cpx.kp_h), kp_mask=cpx.kp_mask[:, lo:hi],
                           kp_v=self.rows(cpx.kp_v))
-        if isinstance(kk, tuple):  # neighbor list (B, K, cap) into the global rows
-            kk = tuple(a[:, lo:hi] for a in kk)
+        if isinstance(kk, NbrList):  # (B, K, cap) into the global rows
+            kk = NbrList(kk.idx[:, lo:hi], kk.valid[:, lo:hi])
         elif torch.is_tensor(kk):  # dense (B, Ns, Nd): every source to this rank's destinations
             kk = kk[:, :, lo:hi]
-        return cpx, kk  # the block layout stays whole: the dynamics run it on gathered keypoints
+        elif not isinstance(kk, Blocks):  # the block layout stays whole: the dynamics run it on gathered keypoints
+            refuse(kk)
+        return cpx, kk
 
 
 def _pad_axis(x: torch.Tensor, dim: int, new: int) -> torch.Tensor:
@@ -253,7 +272,7 @@ def pad_kp(enc: PaddedComplex, kk, multiple: int):
     to the original (unmoved) rows."""
     K = enc.kp_x.shape[1]
     Kp = -(-K // multiple) * multiple
-    if isinstance(kk, dict) and Kp != K:
+    if isinstance(kk, Blocks) and Kp != K:
         raise ValueError("block kk layout tiles the kp axis and cannot be row-padded; "
                          "use compact_kk (exact) before kp-sharding")
     if Kp == K:
@@ -261,10 +280,12 @@ def pad_kp(enc: PaddedComplex, kk, multiple: int):
     enc = enc.replace(kp_x=_pad_axis(enc.kp_x, 1, Kp), kp_h=_pad_axis(enc.kp_h, 1, Kp),
                       kp_mask=_pad_axis(enc.kp_mask, 1, Kp),
                       kp_v=None if enc.kp_v is None else _pad_axis(enc.kp_v, 1, Kp))
-    if isinstance(kk, tuple):  # capped neighbor list (idx, mask)
-        kk = tuple(_pad_axis(a, 1, Kp) for a in kk)
-    elif torch.is_tensor(kk) and kk.dim() == 3:  # dense (B, K, K)
+    if isinstance(kk, NbrList):
+        kk = NbrList(_pad_axis(kk.idx, 1, Kp), _pad_axis(kk.valid, 1, Kp))
+    elif torch.is_tensor(kk):  # dense (B, K, K)
         kk = _pad_axis(_pad_axis(kk, 1, Kp), 2, Kp)
+    else:
+        refuse(kk)
     return enc, kk
 
 
@@ -288,7 +309,8 @@ def shard_encoded(enc: PaddedComplex, kk, mesh, axis: str = "model", batch_axis:
     from kpdiff_tpu_torch.parallel.mesh import batch_rows, shard_batch
 
     n = mesh.size(axis)
-    if isinstance(kk, dict) and n > 1:
+    kk = as_kk(kk)
+    if isinstance(kk, Blocks) and n > 1:
         raise ValueError("kp-sharding the block kk layout is unsupported; run model.compact_kk first "
                          "(exact rebuild)")
     b = enc.batch_size

@@ -20,6 +20,7 @@ import torch.distributed as dist
 
 from kpdiff_tpu_torch.device import resolve_device
 from kpdiff_tpu_torch.parallel.distributed import in_group, local_device, rank, visible_devices, world_size
+from kpdiff_tpu_torch.utils import remake
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,7 +113,7 @@ def shard_batch(x, mesh: Mesh, axis: str = "data", micro_batches: int = 1):
         return x.replace(**{f.name: shard_batch(getattr(x, f.name), mesh, axis, micro_batches)
                             for f in dataclasses.fields(x)})
     if isinstance(x, (tuple, list)):
-        return type(x)(shard_batch(a, mesh, axis, micro_batches) for a in x)
+        return remake(x, [shard_batch(a, mesh, axis, micro_batches) for a in x])
     if micro_batches == 1:
         return x[batch_rows(x.shape[0], mesh, axis)]
     if x.shape[0] % micro_batches:

@@ -55,7 +55,8 @@ from kpdiff_tpu_torch.analysis.molecule_builder import BuiltMolecule, build_mole
 from kpdiff_tpu_torch.config import PaddingConfig, load_config, model_from_config, resolve_feature_sizes
 from kpdiff_tpu_torch.data.padding import pad_item, to_complex
 from kpdiff_tpu_torch.device import resolve_device
-from kpdiff_tpu_torch.utils import profiling
+from kpdiff_tpu_torch.ops.edge_sets import as_kk, layout_name, list_cap
+from kpdiff_tpu_torch.utils import profiling, remake
 from kpdiff_tpu_torch.utils.params_io import load_params, read_keystr_npz
 
 
@@ -246,10 +247,11 @@ class KeypointSampler:
             enc, kk = self.model.encode(cpx)
         self.last_keypoints = (enc.kp_x[0], enc.kp_mask[0])  # the pocket's keypoints, for keypoints.xyz
         with profiling.span("serve.compact_kk"):
-            kk = self.model.compact_kk(enc, kk, min_cap=self._kk_cap)
-        if isinstance(kk, tuple) and int(kk[0].shape[-1]) > self._kk_cap:
+            kk = as_kk(self.model.compact_kk(enc, kk, min_cap=self._kk_cap))
+        cap = list_cap(kk)
+        if cap > self._kk_cap:
             profiling.count("serve.kk_cap_grows")
-            self._kk_cap = int(kk[0].shape[-1])
+            self._kk_cap = cap
         with profiling.span("serve.chain"):
             if self._mesh is None:
                 out = self.model.sample(enc, kk, init_com=init_com, sample_steps=self.sample_steps, eta=self.eta,
@@ -257,9 +259,7 @@ class KeypointSampler:
             else:
                 self._bcast(_to_device((enc, kk, init_com), "cpu"))
                 out = self._sample_sharded(enc, kk, init_com)
-        if isinstance(kk, tuple):
-            return out, f"nbr{int(kk[0].shape[-1])}", (kk[1].numel(), torch.sum(kk[1]))
-        return out, "dense", None
+        return out, layout_name(kk), (kk.valid.numel(), torch.sum(kk.valid)) if cap else None
 
     # ------------------------------------------------------------------ API
 
@@ -343,7 +343,7 @@ class KeypointSampler:
                         com = torch.as_tensor(np.broadcast_to(np.asarray(init_com, np.float32),
                                                               (self.batch_size, 3)).copy(), device=self.device)
                 with profiling.span("serve.sample") as sample:  # encode, compact_kk and chain
-                    out, layout, kk_nbr = self._run(cpx, com)
+                    out, layout, kk_list = self._run(cpx, com)
                 with profiling.span("serve.readback") as readback:
                     self._sync()
                 with profiling.span("serve.decode") as decode:
@@ -363,9 +363,9 @@ class KeypointSampler:
                                 ("slot_atom_steps", self.batch_size * bucket * chain_steps),
                                 ("ligands_decoded", len(ligands))):
                     profiling.count(f"serve.{name}", n)
-                if kk_nbr is not None:  # read after the readback's sync
-                    profiling.count("serve.kk_nbr_slots", kk_nbr[0] * chain_steps)
-                    profiling.count("serve.kk_nbr_edges", int(kk_nbr[1]) * chain_steps)
+                if kk_list is not None:  # read after the readback's sync
+                    profiling.count("serve.kk_nbr_slots", kk_list[0] * chain_steps)
+                    profiling.count("serve.kk_nbr_edges", int(kk_list[1]) * chain_steps)
                 done += bs
             profiling.count("serve.ligands_built", len(mols))
             self.last_request = stats
@@ -379,7 +379,7 @@ def _to_device(obj, device):
     if isinstance(obj, PaddedComplex):
         return obj.to(device)
     if isinstance(obj, (tuple, list)):
-        return type(obj)(_to_device(o, device) for o in obj)
+        return remake(obj, [_to_device(o, device) for o in obj])
     return obj.to(device) if torch.is_tensor(obj) else obj
 
 

@@ -50,6 +50,7 @@ import kpdiff_tpu_torch.models.egnn as egnn_mod
 from kpdiff_tpu_torch.config import PaddingConfig, load_config, model_from_config, resolve_feature_sizes
 from kpdiff_tpu_torch.models.complex import synthetic_batch
 from kpdiff_tpu_torch.ops.cuda import egnn_edge
+from kpdiff_tpu_torch.ops.edge_sets import layout_name
 from kpdiff_tpu_torch.utils.params_io import load_params, read_keystr_npz
 from kpdiff_tpu_torch.utils.profiling import SLOTS
 
@@ -166,16 +167,9 @@ def train_profile(args):
         Path(args.out).write_text("\n".join(report) + "\n")
 
 
-def _edge_key(role, a, n_kp):
-    """The edge set with the kernel's (Ns x Nd) shape: the EGNNEdgeDense
-    module running (`role`), or for the kNN kl / lk masks, which run no
-    EGNNEdgeDense after edge_ll, the side that holds the keypoints (ll's
-    grid is square)."""
-    ns, nd = a[0].shape[1], a[1].shape[1]
-    name = role["now"]
-    if name == "ll" and ns != nd:
-        name = "kl" if ns == n_kp else "lk"
-    return f"{name}{ns}x{nd}"
+def _edge_key(role, a):
+    """The edge set with the kernel's (Ns x Nd) shape and the EGNNEdge module running (`role`)."""
+    return f"{role['now']}{a[0].shape[1]}x{a[1].shape[1]}"
 
 
 def main():
@@ -204,9 +198,9 @@ def main():
     n_rec_feat, n_lig_feat, _ = resolve_feature_sizes(cfg)
     report = [f"{torch.cuda.get_device_name(0)}; {args.config}; weights "
               f"{args.params or 'random seed 0'}; batch {args.batch}; {STEPS} steps"]
-    role = {}  # which dense edge module (edge_ll, edge_kk, or a radius edge_kl / edge_lk) is running
+    role = {}  # which edge module (edge_ll, edge_kl, edge_lk, edge_kk) is running
     for name, mod in model.named_modules():
-        if isinstance(mod, egnn_mod.EGNNEdgeDense):
+        if isinstance(mod, egnn_mod.EGNNEdge):
             mod.register_forward_pre_hook(lambda m, a, r=name.rsplit(".", 1)[-1][-2:]: role.update(now=r))
     for n_lig in args.buckets:
         cpx = synthetic_batch(0, batch=args.batch, n_rec_pad=pad.n_rec, n_lig_pad=n_lig, n_rec_feat=n_rec_feat,
@@ -221,7 +215,7 @@ def main():
         captured = {}  # the edge kernel's inputs, first launch at each shape
 
         def recording(*a, **kw):
-            captured.setdefault(_edge_key(role, a, pad.n_kp), (egnn_edge.snapshot_args(a), kw))
+            captured.setdefault(_edge_key(role, a), (egnn_edge.snapshot_args(a), kw))
             return real(*a, **kw)
 
         real = egnn_mod.egnn_edge_dense
@@ -234,7 +228,7 @@ def main():
         chain = []  # (shape key, adj) of every edge-kernel launch in the profiled steps
 
         def listing(*a, **kw):
-            chain.append((_edge_key(role, a, pad.n_kp), a[15]))
+            chain.append((_edge_key(role, a), a[15]))
             return real(*a, **kw)
 
         egnn_mod.egnn_edge_dense = listing
@@ -248,9 +242,7 @@ def main():
             egnn_mod.egnn_edge_dense = real
         # kernel rows only: an operator's row repeats the time of the kernels it launched
         table = _kernel_table(prof, STEPS, wall)
-        layout = ("block" if isinstance(kk, dict) else f"nbr{int(kk[0].shape[-1])}" if isinstance(kk, tuple)
-                  else "dense")
-        lines = [f"bucket {n_lig}: kk={layout} eager steps: {table[0]}"] + table[1:]
+        lines = [f"bucket {n_lig}: kk={layout_name(kk)} eager steps: {table[0]}"] + table[1:]
         model.sample(enc, kk, sample_steps=2, generator=gen)  # the step's graph: warm-up step and capture
         cap = model.chain_graphs.captures[-1]
         entry = model.chain_graphs.last

@@ -1,7 +1,7 @@
 """kpdiff_tpu_torch EGNN edge modules against kpdiff_tpu on the CPU.
 
-EGNNEdgeDense of the port runs the plain version of the CUDA edge kernel
-here (a CPU tensor); it is held against the JAX module with
+EGNNEdge's dense form in the port runs the plain version of the CUDA edge
+kernel here (a CPU tensor); it is held against the JAX module with
 use_pallas=True (the Pallas kernel in interpret mode, as
 tests/test_pallas_egnn.py runs it) and with use_pallas=False (the XLA path).
 Tolerances: f32 rtol 1e-4, atol 1e-5. bf16: max abs error at most 2e-2 of
@@ -53,8 +53,8 @@ def test_dense_kernel_path_matches_jax(dtype, use_pallas):
     jin = [jnp.asarray(a) for a in inputs]
     params = jmod.init(jax.random.key(0), *jin)
     want = jmod.apply(params, *jin)
-    tmod = load_from_jax(tegnn.EGNNEdgeDense(F, F, torch.Generator().manual_seed(0), use_tanh=True,
-                                             coords_range=10.0, dtype=dtype), params)
+    tmod = load_from_jax(tegnn.EGNNEdge(F, F, torch.Generator().manual_seed(0), use_tanh=True,
+                                        coords_range=10.0, dtype=dtype), params)
     before = egnn_edge.launches
     with torch.no_grad():
         got = tmod(*[t(a) for a in inputs])
@@ -108,10 +108,9 @@ def test_knn_pairs_matches_jax(anchor_is_src, dtype):
     jin = [jnp.asarray(a) for a in (h_a, h_o, x_a, x_o, idx, valid)]
     params = jmod.init(jax.random.key(2), *jin)
     want = jmod.apply(params, *jin)
-    tmod = load_from_jax(tegnn.EGNNEdgeKNNPairs(F, F, torch.Generator(), anchor_is_src=anchor_is_src,
-                                                use_tanh=True, dtype=dtype), params)
+    tmod = load_from_jax(tegnn.EGNNEdge(F, F, torch.Generator(), use_tanh=True, dtype=dtype), params)
     with torch.no_grad():
-        got = tmod(t(h_a), t(h_o), t(x_a), t(x_o), t(idx, torch.int64), t(valid))
+        got = tmod.pairs(t(h_a), t(h_o), t(x_a), t(x_o), t(idx, torch.int64), t(valid), anchor_is_src=anchor_is_src)
     _check(got, want, dtype, f"anchor_is_src={anchor_is_src}")
 
 
@@ -136,7 +135,7 @@ def _kl_case(case, B=2, K=8, N=9, F=24, seed=9):
 def test_knn_mask_route_matches_the_pair_list(anchor_is_src, dtype, case):
     """The kNN edge set as a dense mask through the kernel's entry
     (`kernel`: its plain version on the CPU) against
-    EGNNEdgeKNNPairs.forward's pair list on the same parameters: f32 within
+    EGNNEdge.pairs over the pair list on the same parameters: f32 within
     1e-5; bf16 against the pair list in f32 within 2e-2 of scale (the two
     bf16 routes round at different places, each about 1% from f32 here, so
     their distance can reach twice that). kp_shard: each half of the
@@ -144,12 +143,12 @@ def test_knn_mask_route_matches_the_pair_list(anchor_is_src, dtype, case):
     halves' kl messages into the ligand are summed, their lk rows joined."""
     k, F = 3, 24
     h_kp, h_lig, x_kp, x_lig, kp_mask, lig_mask = _kl_case(case, F=F)
-    mod, ref = (tegnn.EGNNEdgeKNNPairs(F, F, torch.Generator().manual_seed(11), anchor_is_src=anchor_is_src,
-                                       use_tanh=True, dtype=d) for d in (dtype, "float32"))
+    mod, ref = (tegnn.EGNNEdge(F, F, torch.Generator().manual_seed(11), use_tanh=True, dtype=d)
+                for d in (dtype, "float32"))
     rows = [slice(0, 4), slice(4, 8)] if case == "kp_shard" else [slice(None)]
     with torch.no_grad():
         idx, _, valid = knn_indices(x_lig, lig_mask, x_kp, kp_mask, k)
-        want = ref(h_kp, h_lig, x_kp, x_lig, idx, valid & kp_mask[:, :, None])
+        want = ref.pairs(h_kp, h_lig, x_kp, x_lig, idx, valid & kp_mask[:, :, None], anchor_is_src=anchor_is_src)
         parts = []
         for r in rows:
             adj = dense_knn_adjacency(x_kp[:, r], kp_mask[:, r], x_lig, lig_mask, k, per="src")
@@ -181,11 +180,11 @@ def test_nbr_list_matches_jax(coord_layers, edge_feat, compute_coord, dtype):
     jef = None if ef is None else jnp.asarray(ef)
     params = jmod.init(jax.random.key(3), *jin, jef)
     want = jmod.apply(params, *jin, jef)
-    tmod = load_from_jax(tegnn.EGNNEdgeNbrList(F, F, torch.Generator(), use_tanh=True,
-                                               coord_hidden_layers=coord_layers, compute_coord=compute_coord,
-                                               edge_feat_size=1 if edge_feat else 0, dtype=dtype), params)
+    tmod = load_from_jax(tegnn.EGNNEdge(F, F, torch.Generator(), use_tanh=True,
+                                        coord_hidden_layers=coord_layers, compute_coord=compute_coord,
+                                        edge_feat_size=1 if edge_feat else 0, dtype=dtype), params)
     with torch.no_grad():
-        got = tmod(t(h), t(h), t(x), t(x), t(idx, torch.int64), t(valid), None if ef is None else t(ef))
+        got = tmod.nbr(t(h), t(h), t(x), t(x), t(idx, torch.int64), t(valid), None if ef is None else t(ef))
     _check(got, want, dtype, f"layers={coord_layers} ef={edge_feat}")
 
 
@@ -219,8 +218,8 @@ def _grad_setup(dtype, seed=5):
     rng = np.random.default_rng(seed + 1)
     params = jax.tree_util.tree_map(
         lambda p: jnp.asarray(rng.uniform(-1, 1, size=p.shape).astype(np.float32) / np.sqrt(p.shape[0])), shapes)
-    tmod = load_from_jax(tegnn.EGNNEdgeDense(F, F, torch.Generator(), use_tanh=True, coords_range=10.0,
-                                             dtype=dtype), params)
+    tmod = load_from_jax(tegnn.EGNNEdge(F, F, torch.Generator(), use_tanh=True, coords_range=10.0,
+                                        dtype=dtype), params)
     b, _, nd = inputs[4].shape
     r_h = rng.normal(size=(b, nd, F)).astype(np.float32)
     r_x = rng.normal(size=(b, nd, 3)).astype(np.float32)
@@ -235,7 +234,7 @@ def _port_grads(tmod, inputs, r_h, r_x):
 
 
 def test_dense_parameter_gradients_match_jax():
-    """Backward through EGNNEdgeDense reaches all 15 parameters and both node
+    """Backward through EGNNEdge's dense form reaches all 15 parameters and both node
     inputs and matches jax.grad of the JAX module's XLA path (f32)."""
     jmod, params, tmod, inputs, r_h, r_x = _grad_setup("float32")
 

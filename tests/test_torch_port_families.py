@@ -15,6 +15,7 @@ import torch
 
 from kpdiff_tpu.config import load_config as jload
 from kpdiff_tpu_torch.config import load_config as tload, model_from_config as tmodel
+from kpdiff_tpu_torch.ops.edge_sets import Blocks
 from torch_port_util import assert_close, assert_rel_max, edge_set, family_setup, reduce_family
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -43,8 +44,8 @@ def test_config_chain_and_loss_match_jax(name):
     jenc, jkk = jax.jit(jm.encode)(jp, jb)
     jout = jm.sample(jp, jax.random.key(0), jenc, jkk, sample_steps=K,
                      noise={k: jnp.asarray(v) for k, v in noise.items()})
-    if isinstance(kk, dict):
-        np.testing.assert_array_equal(kk["block"].numpy(), np.asarray(jkk["block"]))
+    if isinstance(kk, Blocks):
+        np.testing.assert_array_equal(kk.adj.numpy(), np.asarray(jkk["block"]))
     else:
         assert edge_set(kk) == edge_set(jkk)
     assert_close(enc.kp_x, jenc.kp_x, RTOL, ATOL, f"{name}: kp_x")
@@ -171,7 +172,7 @@ def test_block_kk_edges_match_jax(name):
     jm, jp, tm, tb, jb = family_setup(_reduced(name))
     enc, kk = tm.encode(tb)
     jenc, jkk = jm.encode(jp, jb)
-    adj = kk["block"]
+    adj = kk.adj
     assert adj.shape == (4, 3, 48, 16)
     np.testing.assert_array_equal(adj.numpy(), np.asarray(jkk["block"]))
     j = torch.arange(16)

@@ -1,7 +1,7 @@
 """The reference's other graph options through kpdiff_tpu_torch against
 kpdiff_tpu on the CPU: kNN ligand edges (`ll_k > 0`), dense radius
 keypoint-ligand edges (`kl_k == 0`, kl and its transpose lk as dense grids),
-EGNNEdgeDense in the encoder's configuration, and the learned encoders with
+EGNNEdge's dense form in the encoder's configuration, and the learned encoders with
 `rr_layout: block`. Inputs come from numpy seeds and molgen; the weights are
 the port's seeded init carried into a JAX param tree; f32 at rtol 1e-4 /
 atol 1e-5."""
@@ -122,29 +122,29 @@ def test_kl_radius_chain_and_loss_match_jax(name):
 
 
 def test_kl_radius_names_load_either_layout():
-    """edge_kl / edge_lk carry the same parameter names under both kl
-    layouts, so one archive loads under either."""
+    """edge_kl / edge_lk are one EGNNEdge with the same parameter names
+    under both kl layouts, so one archive loads under either."""
     from kpdiff_tpu_torch.config import model_from_config
-    from kpdiff_tpu_torch.models.egnn import EGNNEdgeDense, EGNNEdgeKNNPairs
+    from kpdiff_tpu_torch.models.egnn import EGNNEdge
     from kpdiff_tpu_torch.utils.params_io import export_flat, load_params
 
     knn = model_from_config(_config("egnn_40kp"), device="cpu")
     radius = model_from_config(_config("egnn_40kp", dynamics=dict(kl_k=0)), device="cpu", seed=1)
-    assert isinstance(knn.dynamics.conv0.edge_kl, EGNNEdgeKNNPairs)
-    assert isinstance(radius.dynamics.conv0.edge_lk, EGNNEdgeDense)
+    assert isinstance(knn.dynamics.conv0.edge_kl, EGNNEdge)
+    assert isinstance(radius.dynamics.conv0.edge_lk, EGNNEdge)
     load_params(radius, export_flat(knn))
     for (n, a), (_, b) in zip(knn.named_parameters(), radius.named_parameters()):
         assert torch.equal(a, b), n
 
 
-# ---- EGNNEdgeDense in the encoder's configuration (kpdiff_tpu/models/egnn.py:131-136, 178-184)
+# ---- EGNNEdge's dense form in the encoder's configuration (kpdiff_tpu/models/egnn.py:131-136, 178-184)
 
 @pytest.mark.parametrize("compute_coord", [True, False], ids=["coords", "fix_pos"])
 def test_edge_dense_encoder_variant_matches_jax(compute_coord):
     """Edge features, one coord hidden layer, compute_coord False (fix_pos):
     the plain path, on the flax module's parameters."""
     from kpdiff_tpu.models.egnn import EGNNEdgeDense as JDense
-    from kpdiff_tpu_torch.models.egnn import EGNNEdgeDense
+    from kpdiff_tpu_torch.models.egnn import EGNNEdge
     from kpdiff_tpu_torch.utils.params_io import load_params
 
     rng = np.random.default_rng(6)
@@ -158,8 +158,8 @@ def test_edge_dense_encoder_variant_matches_jax(compute_coord):
     args = [jnp.asarray(a) for a in (hs, hd, xs, xd, adj, ef)]
     params = jmod.init(jax.random.key(0), *args)
     want = jmod.apply(params, *args)
-    mod = EGNNEdgeDense(f, h, torch.Generator().manual_seed(0), use_tanh=True, coord_hidden_layers=1,
-                        compute_coord=compute_coord, edge_feat_size=1)
+    mod = EGNNEdge(f, h, torch.Generator().manual_seed(0), use_tanh=True, coord_hidden_layers=1,
+                   compute_coord=compute_coord, edge_feat_size=1)
     assert not mod.kernel_ok
     load_params(mod, jax_flat(params))
     got = mod(*(torch.from_numpy(np.asarray(a)) for a in (hs, hd, xs, xd, adj, ef)))
@@ -185,8 +185,8 @@ def test_block_rr_encoder_matches_jax(name):
         assert torch.isfinite(getattr(enc, k)).all()
         assert_close(getattr(enc, k), getattr(jenc, k), RTOL, ATOL, f"{name}: {k}")
     if name.startswith("egnn"):
-        from kpdiff_tpu_torch.models.egnn import EGNNEdgeDense
+        from kpdiff_tpu_torch.models.egnn import EGNNEdge
 
-        assert isinstance(tm.encoder.rec_conv0.edge_rr, EGNNEdgeDense)
+        assert isinstance(tm.encoder.rec_conv0.edge_rr, EGNNEdge)
     else:
         assert tm.encoder.rr_layout == "block"

@@ -20,6 +20,7 @@ from kpdiff_tpu_torch.models import gvp as tgvp
 from kpdiff_tpu_torch.models.complex import synthetic_batch
 from kpdiff_tpu_torch.models.dynamics_gvp import GVPDynamics, GVPMultiEdgeConv
 from kpdiff_tpu_torch.models.encoder_gvp import GVPReceptorEncoder
+from kpdiff_tpu_torch.ops.edge_sets import Blocks
 from kpdiff_tpu_torch.ops.geometry import rbf_embed
 from kpdiff_tpu_torch.ops.neighbors import dense_radius_adjacency, knn_indices, radius_neighbor_list
 from kpdiff_tpu_torch.ops.spatial import block_radius_adjacency, spatial_sort_permutation
@@ -234,8 +235,8 @@ def test_gvp_dynamics_matches_jax(case):
         kk = radius_neighbor_list(kp_x, kp_mask, kp_x, kp_mask, 3.5, 8, exclude_self=True)
         jkk = tuple(jnp.asarray(a.numpy()) for a in kk)
     else:
-        kk = {"block": block_radius_adjacency(kp_x, kp_mask, 3.5, 8)}  # 4 windows of 8
-        jkk = {"block": jnp.asarray(kk["block"].numpy())}
+        kk = Blocks(block_radius_adjacency(kp_x, kp_mask, 3.5, 8))  # 4 windows of 8
+        jkk = {"block": jnp.asarray(kk.adj.numpy())}
     dims = dict(vector_size=V, n_convs=3, n_hidden_scalars=S, update_kp=True, ll_k=0, kl_k=3, n_message_gvps=2,
                 n_update_gvps=1, n_noise_gvps=2, ll_cutoff=5.0, **kw)
     dyn = GVPDynamics(6, 5, torch.Generator().manual_seed(10), **dims)

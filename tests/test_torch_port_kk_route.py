@@ -1,14 +1,15 @@
 """The route of the EGNN dynamics' kk edges and the serving layer's count of
 a kk neighbor list (kpdiff_tpu_torch/models/dynamics_egnn.py, serve.py):
-which kk module each conv layer calls (the neighbor-list module kk_nbr, or
-edge_kk over the block layout's windows, over a dense grid or over a
-neighbor list's dense mask), the serving counter serve.chunks_kk_<layout>,
+which form of its kk module each conv layer calls (edge_kk's `nbr` form
+over the neighbor list, or its `dense` form over the block layout's
+windows, a dense grid or a neighbor list's dense mask), the serving counter
+serve.chunks_kk_<layout>,
 and serve.kk_nbr_slots and serve.kk_nbr_edges, which count, for each chunk
 whose kk is a neighbor list, the slots the list computes and the valid
 edges among them, each times the chain's steps.
 
 Where the edge kernel runs and nothing records autograd, a neighbor-list kk
-goes to edge_kk as its dense (B, K, K) mask (`neighbor_list_adjacency`);
+goes to edge_kk as its dense (B, K, K) mask (`NbrList.adjacency`);
 elsewhere it stays the list. The cases here check the mask against the rr
 radius graph and the list's edge count, one dynamics call on either route,
 and the counters dynamics.kk_route_kernel / dynamics.kk_route_list. The
@@ -37,9 +38,10 @@ import torch
 from kpdiff_tpu_torch.config import PaddingConfig, dump_yaml, load_config, model_from_config, resolve_feature_sizes
 from kpdiff_tpu_torch.data.padding import pad_item, to_complex
 from kpdiff_tpu_torch.models import dynamics_egnn
-from kpdiff_tpu_torch.models.egnn import EGNNEdgeDense, EGNNEdgeNbrList
+from kpdiff_tpu_torch.models.egnn import EGNNEdge
 from kpdiff_tpu_torch.ops.cuda import egnn_edge
-from kpdiff_tpu_torch.ops.neighbors import dense_radius_adjacency, neighbor_list_adjacency, radius_neighbor_list
+from kpdiff_tpu_torch.ops.edge_sets import Blocks, NbrList
+from kpdiff_tpu_torch.ops.neighbors import dense_radius_adjacency, radius_neighbor_list
 from kpdiff_tpu_torch.utils import profiling
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -106,24 +108,23 @@ def _complex(cfg, pocket, b: int = 2):
 
 
 class KKCalls:
-    """Calls of every conv layer's kk modules by route, from forward hooks:
-    kk_nbr is the neighbor list; edge_kk takes the block layout's windows
-    (3 * tile sources to tile destinations) or a dense square grid."""
+    """Calls of the forms of every conv layer's edge_kk by route: `nbr` is
+    the neighbor list; `dense` takes the block layout's windows (3 * tile
+    sources to tile destinations) or a dense square grid."""
 
     def __init__(self, model):
         self.calls = dict.fromkeys(ROUTES, 0)
         for name, mod in model.dynamics.named_modules():
-            if name.rsplit(".", 1)[-1] == "kk_nbr":
-                mod.register_forward_hook(self._hook("nbr"))
-            elif name.rsplit(".", 1)[-1] == "edge_kk":
-                mod.register_forward_hook(lambda m, args, out: self._count(
-                    "dense" if args[-1].shape[-2] == args[-1].shape[-1] else "block"))
+            if name.rsplit(".", 1)[-1] == "edge_kk":
+                mod.nbr = self._counted(mod.nbr, lambda adj: "nbr")
+                mod.dense = self._counted(mod.dense, lambda adj: "dense" if adj.shape[-2] == adj.shape[-1]
+                                          else "block")
 
-    def _hook(self, route):
-        return lambda m, args, out: self._count(route)
-
-    def _count(self, route):
-        self.calls[route] += 1
+    def _counted(self, form, route):
+        def call(*args, **kw):
+            self.calls[route(args[4])] += 1
+            return form(*args, **kw)
+        return call
 
     def only(self, route, n):
         return self.calls == {r: n if r == route else 0 for r in ROUTES}
@@ -146,10 +147,10 @@ def test_all_atom_kk_route(compact):
     calls = KKCalls(model)
     with torch.no_grad():
         enc, kk = model.encode(_complex(cfg, _pocket()))
-        assert isinstance(kk, dict)
+        assert isinstance(kk, Blocks)
         if compact:
             kk = model.compact_kk(enc, kk)
-            assert isinstance(kk, tuple) and kk[0].shape[-1] < N_REC
+            assert isinstance(kk, NbrList) and kk.idx.shape[-1] < N_REC
     _one_call(model, enc, kk)
     assert calls.only("nbr" if compact else "block", N_LAYERS), calls.calls
 
@@ -238,7 +239,7 @@ def _all_atom_list(seeds=(0, 4), n_recs=(40, 27), dtype: str = "float32"):
     with torch.no_grad():
         enc, kk = model.encode(cpx)
         kk = model.compact_kk(enc, kk)
-    assert isinstance(kk, tuple) and kk[0].shape[-1] < N_REC
+    assert isinstance(kk, NbrList) and kk.idx.shape[-1] < N_REC
     return model, enc, kk
 
 
@@ -262,7 +263,7 @@ def test_list_mask_is_the_radius_graph(alias):
     model, enc, (idx, valid) = _all_atom_list()
     if alias:
         idx = _alias_a_padded_slot(idx, valid)
-    mask = neighbor_list_adjacency(idx, valid, N_REC)
+    mask = NbrList(idx, valid).adjacency(N_REC)
     want = dense_radius_adjacency(enc.kp_x, enc.kp_mask, enc.kp_x, enc.kp_mask, RR, exclude_self=True)
     assert not bool(enc.kp_mask.all())
     assert mask.shape == want.shape == (2, N_REC, N_REC) and mask.is_contiguous()
@@ -275,7 +276,7 @@ def test_list_mask_counts_the_list_edges():
     equals the list's valid slots of that row: message_norm's kk count, read
     from `valid`, is the mask's count too."""
     _, _, (idx, valid) = _all_atom_list(seeds=(1, 2, 3), n_recs=(40, 33, 12))
-    mask = neighbor_list_adjacency(idx, valid, N_REC)
+    mask = NbrList(idx, valid).adjacency(N_REC)
     assert torch.equal(torch.sum(mask, dim=1), torch.sum(valid, dim=-1))
     assert torch.equal(torch.sum(mask, dim=(1, 2)), torch.sum(valid, dim=(1, 2)))
 
@@ -291,7 +292,7 @@ def _dynamics_call(model, enc, kk, grad: bool = False):
 def test_mask_route_matches_the_list_route(monkeypatch, dtype, tol):
     """One EGNNDynamics call (update_kp_feat, compact_kk's list) on the
     kernel's route (kernel device patched in: edge_kk over the mask, the
-    kernel's plain version) against the same call on the list route (kk_nbr),
+    kernel's plain version) against the same call on the list route (nbr),
     within 1e-4 of scale in f32 and 2e-2 in bf16."""
     model, enc, kk = _all_atom_list(dtype=dtype)
     calls = KKCalls(model)
@@ -332,7 +333,7 @@ def test_kk_route_counters(tracer, monkeypatch, case):
 def test_all_atom_shapes_on_the_card(card):
     """The kernel route at the all-atom cell's shapes (B=32, K=384, the rr
     list of molgen pockets at cap 24, width 257, bf16): edge_kk over the
-    list's mask against kk_nbr over the list in f32 on the same parameters,
+    list's mask against its `nbr` form over the list in f32 on the same parameters,
     within 2e-2 of scale; two launches on the same inputs bitwise equal."""
     from portbench.traffic.molgen import complex_of_size
 
@@ -347,15 +348,15 @@ def test_all_atom_shapes_on_the_card(card):
     adj = dense_radius_adjacency(x, mask, x, mask, RR, exclude_self=True)
     assert int(adj.sum(1).max()) <= cap
     idx, valid = radius_neighbor_list(x, mask, x, mask, RR, cap, exclude_self=True)
-    kk_mask = neighbor_list_adjacency(idx, valid, k)
+    kk_mask = NbrList(idx, valid).adjacency(k)
     assert torch.equal(kk_mask, adj)
     g = torch.Generator(device=card).manual_seed(3)
     hs = torch.randn(b, k, h, generator=g, device=card) * mask[..., None]
-    mod = EGNNEdgeDense(h, h, torch.Generator().manual_seed(4), use_tanh=True, dtype="bfloat16").to(card)
-    ref = EGNNEdgeNbrList(h, h, torch.Generator(), use_tanh=True, dtype="float32").to(card)
+    mod = EGNNEdge(h, h, torch.Generator().manual_seed(4), use_tanh=True, dtype="bfloat16").to(card)
+    ref = EGNNEdge(h, h, torch.Generator(), use_tanh=True, dtype="float32").to(card)
     ref.load_state_dict(mod.state_dict())
     with torch.no_grad():
-        want = ref(hs, hs, x, x, idx, valid)
+        want = ref.nbr(hs, hs, x, x, idx, valid)
         before = egnn_edge.launches
         got, again = mod(hs, hs, x, x, kk_mask), mod(hs, hs, x, x, kk_mask)
     torch.cuda.synchronize()

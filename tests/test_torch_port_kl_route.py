@@ -18,7 +18,7 @@ import torch
 
 from kpdiff_tpu_torch.models import dynamics_egnn, egnn as tegnn
 from kpdiff_tpu_torch.models.dynamics_egnn import EGNNDynamics
-from kpdiff_tpu_torch.models.egnn import EGNNEdgeKNNPairs
+from kpdiff_tpu_torch.models.egnn import EGNNEdge
 from kpdiff_tpu_torch.ops.cuda import egnn_edge
 from kpdiff_tpu_torch.ops.neighbors import dense_knn_adjacency, knn_indices
 from kpdiff_tpu_torch.utils import profiling
@@ -159,9 +159,8 @@ def test_knn_mask_counts_the_pair_list_edges(case):
     assert int(e_pairs.sum()) > 0
 
 
-def _pair_module(dtype, h, seed=3, anchor_is_src=True, device="cpu"):
-    return EGNNEdgeKNNPairs(h, h, torch.Generator().manual_seed(seed), anchor_is_src=anchor_is_src,
-                            use_tanh=True, dtype=dtype).to(device)
+def _pair_module(dtype, h, seed=3, device="cpu"):
+    return EGNNEdge(h, h, torch.Generator().manual_seed(seed), use_tanh=True, dtype=dtype).to(device)
 
 
 @pytest.mark.card
@@ -180,10 +179,10 @@ def test_flagship_shapes_on_the_card(card, n_lig):
     idx, _, valid = knn_indices(x_lig, lig_mask, x_kp, kp_mask, 5)
     adj = dense_knn_adjacency(x_kp, kp_mask, x_lig, lig_mask, 5, per="src")
     for anchor_is_src in (True, False):
-        mod = _pair_module("bfloat16", h, anchor_is_src=anchor_is_src, device=card)
-        ref = _pair_module("float32", h, anchor_is_src=anchor_is_src, device=card)
+        mod = _pair_module("bfloat16", h, device=card)
+        ref = _pair_module("float32", h, device=card)
         with torch.no_grad():
-            want = ref(h_kp, h_lig, x_kp, x_lig, idx, valid)
+            want = ref.pairs(h_kp, h_lig, x_kp, x_lig, idx, valid, anchor_is_src=anchor_is_src)
             dense = ((h_kp, h_lig, x_kp, x_lig, adj) if anchor_is_src
                      else (h_lig, h_kp, x_lig, x_kp, adj.transpose(1, 2).contiguous()))
             before = egnn_edge.launches

@@ -23,6 +23,7 @@ import torch
 from kpdiff_tpu_torch.config import PaddingConfig, load_config, model_from_config, resolve_feature_sizes
 from kpdiff_tpu_torch.models import dynamics_egnn
 from kpdiff_tpu_torch.models.complex import synthetic_batch
+from kpdiff_tpu_torch.ops.edge_sets import Blocks, NbrList
 from kpdiff_tpu_torch.parallel import distributed as pdist
 from kpdiff_tpu_torch.parallel.kp_shard import pad_kp, shard_encoded
 from kpdiff_tpu_torch.parallel.mesh import make_mesh
@@ -181,7 +182,7 @@ def test_pad_kp_matches_jax(layout):
     kk = dense if layout == "dense" else nbr
     j_enc, j_kk = jpad_kp(JComplex(**{k: jnp.asarray(v) for k, v in fields.items()}),
                           jnp.asarray(kk) if layout == "dense" else tuple(jnp.asarray(a) for a in kk), 8)
-    t_kk = torch.from_numpy(kk) if layout == "dense" else tuple(torch.from_numpy(a) for a in kk)
+    t_kk = torch.from_numpy(kk) if layout == "dense" else NbrList(*(torch.from_numpy(a) for a in kk))
     t_enc, t_kk = pad_kp(PaddedComplex(**{k: torch.from_numpy(v) for k, v in fields.items()}), t_kk, 8)
     assert t_enc.kp_x.shape[1] == 24 and not t_enc.kp_mask[:, 20:].any()
     for k in ("kp_x", "kp_h", "kp_mask", "kp_v"):
@@ -197,7 +198,7 @@ def test_block_layout_rejected_with_hint():
 
     fields, _ = _jax_enc()
     enc = PaddedComplex(**{k: torch.from_numpy(v) for k, v in fields.items()})
-    block = {"block": torch.zeros((2, 2, 30, 10), dtype=torch.bool)}
+    block = Blocks(torch.zeros((2, 2, 30, 10), dtype=torch.bool))
     with pytest.raises(ValueError, match="compact_kk"):
         pad_kp(enc, block, 8)
     mesh = Mesh(("model",), (2,), (0,), (None,), torch.device("cpu"))

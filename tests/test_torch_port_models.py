@@ -22,6 +22,7 @@ from kpdiff_tpu_torch.data.padding import pad_item as tpad_item
 from kpdiff_tpu_torch.models.complex import synthetic_batch as tsyn
 from kpdiff_tpu_torch.models.dynamics_egnn import EGNNDynamics as TDyn
 from kpdiff_tpu_torch.models.encoder_egnn import EGNNReceptorEncoder as TEnc
+from kpdiff_tpu_torch.ops.edge_sets import NbrList
 from torch_port_util import assert_close, assert_rel_max, load_from_jax, t
 
 BF16_REL = 2e-2
@@ -56,7 +57,7 @@ def test_dynamics_matches_jax(kk_layout, dtype, message_norm, z_sem, pallas):
     else:
         idx, valid = jnbr(kp_x, kp_mask, kp_x, kp_mask, 4.0, 4, exclude_self=True)
         jkk = (idx, valid)
-        tkk = (t(idx, torch.int64), t(valid))
+        tkk = NbrList(t(idx, torch.int64), t(valid))
     jmod = JDyn(**kw, kl_cutoff=8.0, use_pallas=pallas)
     params = jmod.init(jax.random.key(0), *jin, jkk)
     want = jmod.apply(params, *jin, jkk)

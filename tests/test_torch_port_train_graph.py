@@ -51,7 +51,7 @@ from kpdiff_tpu_torch.config import PaddingConfig, model_from_config as tmodel, 
 from kpdiff_tpu_torch.data.dataset import PaddedLoader
 from kpdiff_tpu_torch.data.molgen import molgen_splits_for_config, type_counts
 from kpdiff_tpu_torch.models.chain_graph import ChainGraphs, host_capture
-from kpdiff_tpu_torch.models.egnn import EGNNEdgeDense
+from kpdiff_tpu_torch.models.egnn import EGNNEdge
 from kpdiff_tpu_torch.training import scheduler as tsched, trainer as ttrainer
 from kpdiff_tpu_torch.training.train_graph import TrainGraphs, heldout_loss
 from kpdiff_tpu_torch.utils.params_io import export_flat, load_params
@@ -328,8 +328,8 @@ def test_caches_see_replayed_updates(monkeypatch):
         assert torch.equal(got[k], want[k]), k
     assert not torch.equal(got["lig_x"], stale["lig_x"])  # the replayed steps changed the sample
     assert len(tm.chain_graphs.captures) == 2  # recaptured at the new weights
-    packs = [m for m in tm.modules() if isinstance(m, EGNNEdgeDense) and m.kernel_ok]
-    fresh_packs = [m for m in fresh.modules() if isinstance(m, EGNNEdgeDense) and m.kernel_ok]
+    packs = [m for m in tm.modules() if isinstance(m, EGNNEdge) and m.kernel_ok]
+    fresh_packs = [m for m in fresh.modules() if isinstance(m, EGNNEdge) and m.kernel_ok]
     assert len(packs) == len(fresh_packs) > 0
     for a, b in zip(packs, fresh_packs):
         wa, wb = a._kernel_weights(), b._kernel_weights()
