@@ -64,7 +64,9 @@ Phases, each timed on its own line; any failure raises (non-zero exit):
      version; loss and gradients on the card against the CPU (f32, dropout
      0); 5 optimizer steps with the config's dropout, remat and grad_accum
      through the trainer's captured graphs, ms/step and peak memory; the kernel against its plain version on each
-     new shape's first launch; then phase 8's protocol on the trained GVP
+     new shape's first launch (a neighbor-list kk's in the list mode, on the
+     list's mask), and the list mode at the all-atom cell's kk (B=32 molgen
+     pockets of 384 slots, cap 24); then phase 8's protocol on the trained GVP
      artifacts/gvp_40kp_trained_params.npz, gated on validity >= 0.95,
      connectivity >= 0.82 and atom_type_kl <= 0.03, beside
      STRIDED_QUALITY_GVP.json's K=250 row.
@@ -200,8 +202,8 @@ from kpdiff_tpu_torch.models.chain_graph import STATE, clone_tree, copy_tree
 from kpdiff_tpu_torch.models.diffusion import KeypointDiffusion
 from kpdiff_tpu_torch.models.size_dist import LigandSizeDistribution, save_dataset_histogram
 from kpdiff_tpu_torch.ops.cuda import egnn_edge
-from kpdiff_tpu_torch.ops.edge_sets import layout_name
-from kpdiff_tpu_torch.ops.neighbors import dense_radius_adjacency
+from kpdiff_tpu_torch.ops.edge_sets import NbrList, layout_name
+from kpdiff_tpu_torch.ops.neighbors import dense_radius_adjacency, radius_neighbor_list
 from kpdiff_tpu_torch.ops.spatial import block_radius_adjacency, choose_tile, spatial_sort_permutation
 from kpdiff_tpu_torch.parallel import distributed as pdist
 from kpdiff_tpu_torch.parallel.kp_shard import shard_encoded
@@ -225,7 +227,8 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # relative max-abs error vs t
 # descriptor, swizzle or fragment layout gives errors of order 1
 PRODUCT_TOL = 1e-4
 SPIN_CYCLES = 20_000_000  # about 10 ms of SM clocks: longer than the host takes to queue a measurement's launches
-PROFILE_LATER = []  # (kernel row, its inputs, keywords, launches) of the grids at B <= 32, read by the profiler last
+# (kernel row, its entry, inputs, keywords, launches) of the grids at B <= 32, read by the profiler last
+PROFILE_LATER = []
 TRAIN_COMPLEXES = 256  # molgen training split: auto buckets [24, 32, 48], 3 full batches of 64 per epoch
 TRAIN_STEPS = 20
 TIMED_FROM = 5  # steps 5..19 enter the median ms/step
@@ -242,6 +245,7 @@ FAMILIES = ("egnn_20kp", "egnn_40kp_fast", "egnn_ca", "egnn_all_atom", "gvp_20kp
             "gvp_all_atom", "dev_config")  # phase 9: every config of configs/ besides the flagship
 FAMILY_BATCH, FAMILY_K, FAMILY_TRAIN_STEPS, FAMILY_OWN_KK_STEPS = 32, 50, 5, 5
 OWN_KK = ("egnn_ca", "egnn_all_atom")  # fixed-encoder EGNN families whose own kk (dense 128 x 128, blocks) feeds the kernel
+AA_CELL_KK = (32, 384, 24, 3.5, 257)  # the all-atom cell's kk in the list mode: B, K, cap, rr radius (A), width
 GVP_PARAMS = "artifacts/gvp_40kp_trained_params.npz"
 GVP_QUALITY_GATES = dict(validity=(">=", 0.95), connectivity=(">=", 0.82), atom_type_kl=("<=", 0.03))
 # phase 10: synthetic BindingMOAD splits, train CLI steps and sampling; the upstream graph options' chains
@@ -293,15 +297,15 @@ def abs_err(got, ref):
 def bound(args, cd):
     """Least time for the kernel's work on these inputs: the larger of the
     operations and the bytes (every input read once, every output written
-    once). Operations, for the active pairs: in bf16 the two H x H second
+    once; a list's idx and valid in place of the mask). Operations, for
+    the active pairs: in bf16 the two H x H second
     layers on the tensor cores and the elementwise work on the CUDA cores,
     two units that can run at once, so the larger of their times; in f32
     both on the CUDA cores, so their sum."""
     a_es, a_ed = args[0], args[1]
-    adj = args[15]
     b, ns, h = a_es.shape
     nd = a_ed.shape[1]
-    pairs = int(adj.sum())
+    pairs = int(args[-1].sum())  # the mask's set positions, or a list's valid slots
     matmul = pairs * 2 * 2 * h * h
     elementwise = pairs * 2 * h * ELEMENTWISE_OPS
     n_bytes = sum(t.numel() * t.element_size() for a in args
@@ -334,10 +338,18 @@ def library_ms(args, cd, iters=20):
 
 
 def measure(args, cd, label, iters=20):
+    """One kernel row: two launches bitwise equal, within TOL of the plain
+    version, and the kernel's times beside its bound. `args` are
+    egnn_edge_dense's (the mask mode) or egnn_edge_list's (idx, valid in
+    place of the mask: the list mode, held against the plain version on the
+    list's mask)."""
     kw = dict(use_tanh=True, coords_range=10.0, compute_dtype=cd)
-    got = egnn_edge.egnn_edge_dense(*args, **kw)
-    again = egnn_edge.egnn_edge_dense(*args, **kw)
-    ref = egnn_edge.egnn_edge_dense_plain(*args, **kw)
+    listed = len(args) == 17
+    run = egnn_edge.egnn_edge_list if listed else egnn_edge.egnn_edge_dense
+    dense_args = (*args[:15], NbrList(*args[15:]).adjacency(args[0].shape[1])) if listed else args
+    got = run(*args, **kw)
+    again = run(*args, **kw)
+    ref = egnn_edge.egnn_edge_dense_plain(*dense_args, **kw)
     torch.cuda.synchronize()
     for t in got:
         if not torch.isfinite(t).all():
@@ -347,21 +359,45 @@ def measure(args, cd, label, iters=20):
     rel, ab = rel_err(got, ref), abs_err(got, ref)
     if rel > TOL[cd]:
         raise RuntimeError(f"{label} {cd}: kernel vs plain relative error {rel:.3e} > {TOL[cd]:.0e}")
-    k_ms = cuda_ms(lambda: egnn_edge.egnn_edge_dense(*args, **kw), iters=iters)
-    d_ms = queued_ms(lambda: egnn_edge.egnn_edge_dense(*args, **kw), iters)
-    p_ms = cuda_ms(lambda: egnn_edge.egnn_edge_dense_plain(*args, **kw), warmup=1, iters=3)
+    k_ms = cuda_ms(lambda: run(*args, **kw), iters=iters)
+    d_ms = queued_ms(lambda: run(*args, **kw), iters)
+    p_ms = cuda_ms(lambda: egnn_edge.egnn_edge_dense_plain(*dense_args, **kw), warmup=1, iters=3)
+    del dense_args, ref
     b_ms, b_by, pairs = bound(args, cd)
     lib, lib_d = library_ms(args, cd, iters) if cd == torch.bfloat16 else (None, None)
-    row = dict(shape=label, dtype=str(cd).replace("torch.", ""), pairs=pairs, max_rel_err=rel,
-               max_abs_err=ab, bitwise_repeat=True, ms=k_ms, device_ms=d_ms, profiler_ms=None, plain_ms=p_ms, bound_ms=b_ms,
-               bound_by=b_by, library_ms=lib, library_device_ms=lib_d)
+    row = dict(shape=label, mode="list" if listed else "mask", dtype=str(cd).replace("torch.", ""), pairs=pairs,
+               max_rel_err=rel, max_abs_err=ab, bitwise_repeat=True, ms=k_ms, device_ms=d_ms, profiler_ms=None,
+               plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib, library_device_ms=lib_d)
     if args[0].shape[0] <= FAMILY_BATCH:  # small grids: torch.profiler's reading too, after every timed phase
-        PROFILE_LATER.append((row, args, kw, iters))
-    print(f"kernel {label} {row['dtype']}: kernel_ms={k_ms:.4f} device_ms={d_ms:.4f} plain_ms={p_ms:.4f} "
-          f"library_ms={lib if lib is None else round(lib, 4)} "
+        PROFILE_LATER.append((row, run, args, kw, iters))
+    print(f"kernel {label} {row['mode']} {row['dtype']}: kernel_ms={k_ms:.4f} device_ms={d_ms:.4f} "
+          f"plain_ms={p_ms:.4f} library_ms={lib if lib is None else round(lib, 4)} "
           f"library_device_ms={lib_d if lib_d is None else round(lib_d, 4)} bound_ms={b_ms:.4f} ({b_by}) "
           f"pairs={pairs} max_rel_err={rel:.3e} max_abs_err={ab:.3e}", flush=True)
     return row
+
+
+def cell_list_args(seed, dev):
+    """egnn_edge_list's operands at the all-atom cell's kk (AA_CELL_KK): B
+    molgen pockets in K slots, their radius graph as a list at cap, nearest
+    first, as tests/test_torch_port_kk_route.py::cell_pockets builds it; the
+    pockets' positions on both sides, the other operands seeded, bf16."""
+    from portbench.traffic.molgen import complex_of_size
+
+    b, k, cap, rr, h = AA_CELL_KK
+    rng = np.random.default_rng(seed)
+    x = torch.zeros(b, k, 3)
+    mask = torch.zeros(b, k, dtype=torch.bool)
+    for i in range(b):
+        pos = complex_of_size(rng, int(rng.integers(13, 33)), ["C", "N", "O", "S"], 4)["rec_pos"]
+        x[i, :len(pos)], mask[i, :len(pos)] = torch.from_numpy(pos), True
+    x, mask = x.to(dev), mask.to(dev)
+    idx, valid = radius_neighbor_list(x, mask, x, mask, rr, cap, exclude_self=True)
+    if not torch.equal(NbrList(idx, valid).adjacency(k), dense_radius_adjacency(x, mask, x, mask, rr,
+                                                                                  exclude_self=True)):
+        raise RuntimeError(f"cell kk: a pocket atom has more than {cap} neighbours within {rr} A")
+    a = with_dtype(random_args(rng, b, k, k, h, dev)[:15], torch.bfloat16)
+    return (*a[:13], x, x, idx.to(torch.int32), valid)
 
 
 def product_check(seed):
@@ -657,7 +693,7 @@ def launches_per_step(model) -> int:
     """Edge-kernel launches of one reverse step (or held-out loss) under
     no_grad on the card: n_layers for ll, as many again for kl (the kNN
     mask, or the radius grid with kl_k 0) and, with update_kp_feat, for lk
-    and for kk (dense, in blocks, or a neighbor list's mask); none for GVP,
+    and for kk (dense, in blocks, or a neighbor list in the list mode); none for GVP,
     whose messages run in plain PyTorch."""
     if model.gvp:
         return 0
@@ -1004,16 +1040,22 @@ def family_phase(name, seed, dev, data_cache, kernel_rows):
                           min_lig=min(18, pad.n_lig - 2), device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     seen = {}
-    real_wrapper = egnn_mod.egnn_edge_dense
+    real_wrapper, real_list = egnn_mod.egnn_edge_dense, egnn_mod.egnn_edge_list
 
-    def recording(*a, **kw):  # the first launch at each (Ns, Nd, H) of this family's paths
+    def recording(*a, **kw):  # the first launch at each (B, Ns, Nd, H) of this family's paths
         key = (int(a[0].shape[0]), int(a[0].shape[1]), int(a[1].shape[1]), int(a[0].shape[2]))
         if key not in seen:
             seen[key] = (egnn_edge.snapshot_args(a), kw["compute_dtype"])
         return real_wrapper(*a, **kw)
 
+    def recording_list(*a, **kw):  # the list mode's first launch at each (B, Ns, Nd, H, cap)
+        key = (int(a[0].shape[0]), int(a[0].shape[1]), int(a[1].shape[1]), int(a[0].shape[2]), int(a[15].shape[2]))
+        if key not in seen:
+            seen[key] = (egnn_edge.snapshot_args(a), kw["compute_dtype"])
+        return real_list(*a, **kw)
+
     # ---- sampling: encode -> compact_kk -> K steps
-    egnn_mod.egnn_edge_dense = recording
+    egnn_mod.egnn_edge_dense, egnn_mod.egnn_edge_list = recording, recording_list
     try:
         with torch.no_grad():
             enc, own_kk = model.encode(cpx)
@@ -1026,7 +1068,7 @@ def family_phase(name, seed, dev, data_cache, kernel_rows):
             torch.cuda.synchronize()
             chain_s = time.perf_counter() - t0
     finally:
-        egnn_mod.egnn_edge_dense = real_wrapper
+        egnn_mod.egnn_edge_dense, egnn_mod.egnn_edge_list = real_wrapper, real_list
     for k, shape in (("lig_x", (FAMILY_BATCH, pad.n_lig, 3)), ("lig_h", (FAMILY_BATCH, pad.n_lig, n_lig_feat))):
         if tuple(out[k].shape) != shape or not torch.isfinite(out[k]).all():
             raise RuntimeError(f"{name}: {k} has shape {tuple(out[k].shape)} or is not finite")
@@ -2512,9 +2554,13 @@ def main():
         family_records[name], launches = family_phase(name, args.seed, dev, data_cache, new_inputs)
         family_paths.update(launches)
     del data_cache
-    family_rows = [measure(a, cd, f"main_{name}_b{k[0]}_ns{k[1]}_nd{k[2]}_h{k[3]}")
+    family_rows = [measure(a, cd, f"main_{name}_b{k[0]}_ns{k[1]}_nd{k[2]}_h{k[3]}"
+                           + "".join(f"_cap{c}" for c in k[4:]))  # a list-mode launch's key ends in its cap
                    for name, k, a, cd in new_inputs]
     del new_inputs
+    b, k, cap = AA_CELL_KK[:3]
+    family_rows.append(measure(cell_list_args(args.seed, dev), torch.bfloat16, f"aa_cell_kk_b{b}_k{k}_cap{cap}"))
+    torch.cuda.empty_cache()
     gvp_cfg = load_config("configs/gvp_40kp.yml")
     gvp_model = model_from_config(gvp_cfg, device=dev, seed=args.seed)
     load_params(gvp_model, read_keystr_npz(GVP_PARAMS))
@@ -2579,8 +2625,8 @@ def main():
 
     # ---- torch.profiler's device time of the small grids, after every timed phase (it slows what follows it)
     t0 = time.perf_counter()
-    for row, a, kw, iters in PROFILE_LATER:
-        row["profiler_ms"] = profiler_ms(lambda: egnn_edge.egnn_edge_dense(*a, **kw), iters)
+    for row, run, a, kw, iters in PROFILE_LATER:
+        row["profiler_ms"] = profiler_ms(lambda: run(*a, **kw), iters)
         print(f"kernel {row['shape']} {row['dtype']}: profiler_ms={row['profiler_ms']} device_ms={row['device_ms']:.4f} "
               f"kernel_ms={row['ms']:.4f}", flush=True)
     read = sum(r["profiler_ms"] is not None for r, *_ in PROFILE_LATER)

@@ -68,12 +68,25 @@
 //     helpers hand tiles over through named barriers (rows full, epilogue
 //     done, staging free). No atomics: two launches give bitwise equal
 //     outputs.
+// The list mode (bf16; template LIST) takes the pairs from a destination-major
+// neighbor list in place of adj: idx (B, Nd, cap) int32 source indices and
+// valid (B, Nd, cap), the pair (s = idx[b, d, j], d) active where valid[b, d,
+// j] is set. Only the helpers' compaction differs: their cursor walks the cap
+// slots of each destination (contiguous, so the flag and index loads of a
+// step coalesce) instead of its Ns sources, and a row's source is the slot's
+// index. A sparse graph's list holds a few slots a destination where its mask
+// holds Ns positions (the all-atom kk: cap 24 against 384). The rows come
+// destination by destination in slot order; where a destination's valid
+// slots name ascending sources, the tiles, and so the sums, are those of the
+// mask mode on the list's mask, bit for bit. A valid slot whose index lies
+// outside [0, Ns) adds nothing.
 // The f32 mode (a tight check of the algorithm, off the main path) keeps a
 // simple CUDA-core design with W2 read from global memory.
 //
-// C interface (loaded with ctypes): egnn_edge_dense_launch returns the
-// cudaError_t of the launch; egnn_edge_error_string names it;
-// egnn_edge_wgmma_probe runs the product alone on one 64-row tile.
+// C interface (loaded with ctypes): egnn_edge_dense_launch (adj) and
+// egnn_edge_list_launch (idx, valid; bf16) return the cudaError_t of the
+// launch; egnn_edge_error_string names it; egnn_edge_wgmma_probe runs the
+// product alone on one 64-row tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -108,6 +121,9 @@ struct Params {
   int edge_blocks;                         // v5: blocks 0 .. edge_blocks - 1 run the edge chain, the rest the coordinate chain
   int use_tanh;
   float coords_range;
+  const int *nbr_idx;                      // list mode: (B,Nd,cap) source indices
+  const uint8_t *nbr_valid;                // list mode: (B,Nd,cap)
+  int cap;                                 // list mode: slots a destination
 };
 
 // Phase clocks (a profiling build only: nvcc -DEGNN_EDGE_PHASE_CLOCKS). Each
@@ -425,7 +441,7 @@ __host__ __device__ constexpr int bar_free(int c) { return 4 + 5 * c; }
 __host__ __device__ constexpr int bar_help(int c) { return 5 + 5 * c; }
 constexpr int HAND = WGT + HT;  // threads of a hand-over barrier: a consumer and its helper warps
 
-template <int NPW, int NPASS, int KP, int NCW>
+template <int NPW, int NPASS, int KP, int NCW, bool LIST>
 __global__ void __launch_bounds__((NCW + 1) * WGT, 1) egnn_edge_v5_kernel(Params p) {
   using C = V5<NPW, NPASS, KP, NCW>;
   constexpr int NP = C::NP, NK = C::NK, NBUF = C::NBUF;
@@ -488,7 +504,8 @@ __global__ void __launch_bounds__((NCW + 1) * WGT, 1) egnn_edge_v5_kernel(Params
     const int nj = wgi < G ? (G - wgi + nwg - 1) / nwg : 0;
     const uint16_t* a_s = static_cast<const uint16_t*>(chain ? p.a_cs : p.a_es);
     const uint16_t* a_d = static_cast<const uint16_t*>(chain ? p.a_cd : p.a_ed);
-    int cur_j = 0, cur_s = 0;  // compaction cursor: the j-th destination, source cur_s
+    const int NW = LIST ? p.cap : Ns;  // positions a destination: its sources, or its list slots
+    int cur_j = 0, cur_s = 0;  // compaction cursor: the j-th destination, position cur_s
     int out_j = 0;             // the next destination to write: wgi + out_j * nwg
     float agg[C::CQT][4];      // edge chain: this thread's column sums of that destination
 #pragma unroll
@@ -501,7 +518,16 @@ __global__ void __launch_bounds__((NCW + 1) * WGT, 1) egnn_edge_v5_kernel(Params
       const int g = wgi + j * nwg, b = g / Nd;
       return adj[(size_t(b) * Ns + s - (j - cj) * Ns) * Nd + g - b * Nd] != 0;
     };
-    bool f = mask_at(cur_j, cur_s);  // the next compaction step's flag, loaded a step ahead
+    int src = 0;  // list mode: the source at this thread's position, loaded with its flag
+    auto slot_at = [&](int cj, int cs) {  // list mode: the flag at this thread's position (slot) of a step
+      const int s = cs + ht, j = cj + s / NW;
+      if (j >= nj) return false;
+      const size_t at = size_t(wgi + j * nwg) * NW + s - (j - cj) * NW;
+      const bool v = p.nbr_valid[at] != 0;
+      src = p.nbr_idx[at];  // beside the flag's load, not after it: every slot holds an index
+      return v && unsigned(src) < unsigned(Ns);
+    };
+    bool f = LIST ? slot_at(cur_j, cur_s) : mask_at(cur_j, cur_s);  // the next step's flag, loaded a step ahead
 
     // writes destination wgi + out_j * nwg's sums (this thread's part), clears them and moves on
 #define FLUSH()                                                                      \
@@ -533,8 +559,8 @@ __global__ void __launch_bounds__((NCW + 1) * WGT, 1) egnn_edge_v5_kernel(Params
       int filled = 0, par = 0;
       while (filled < TM && cur_j < nj) {
         int s = cur_s + ht;
-        const int jj = cur_j + s / Ns, gg = wgi + jj * nwg;
-        s -= (jj - cur_j) * Ns;
+        const int jj = cur_j + s / NW, gg = wgi + jj * nwg;
+        s -= (jj - cur_j) * NW;
         const unsigned m = __ballot_sync(0xffffffffu, f);
         if (lane == 0) ws->masks[par][hp] = m;
         CLK(PH_SETUP);
@@ -543,7 +569,7 @@ __global__ void __launch_bounds__((NCW + 1) * WGT, 1) egnn_edge_v5_kernel(Params
         const unsigned m0 = ws->masks[par][0], m1 = ws->masks[par][1];
         const int total = __popc(m0) + __popc(m1);
         const int pos = filled + (hp ? __popc(m0) : 0) + __popc(m & lt);
-        if (f && pos < TM) ws->pl[pos] = make_int2(gg, s);
+        if (f && pos < TM) ws->pl[pos] = make_int2(gg, LIST ? src : s);
         int adv = HT;
         if (filled + total > TM) {  // full: the next tile starts at the (TM - filled)-th active position
           int need = TM - filled;
@@ -561,10 +587,10 @@ __global__ void __launch_bounds__((NCW + 1) * WGT, 1) egnn_edge_v5_kernel(Params
           filled += total;
         }
         cur_s += adv;
-        cur_j += cur_s / Ns;
-        cur_s %= Ns;
+        cur_j += cur_s / NW;
+        cur_s %= NW;
         par ^= 1;
-        f = mask_at(cur_j, cur_s);  // this tile's next step, or the next tile's first
+        f = LIST ? slot_at(cur_j, cur_s) : mask_at(cur_j, cur_s);  // this tile's next step, or the next tile's first
       }
       CLK(PH_SETUP);
       named_sync(bar_help(c), HT);  // the pair list is complete
@@ -1114,8 +1140,9 @@ int sm_count() {
   return cached[dev];
 }
 
+// positions: the helpers' compaction positions of the launch (B * Nd * Ns, or B * Nd * cap in the list mode)
 template <class V, class K>
-cudaError_t launch_v5(K kernel, const Params& p, cudaStream_t st) {
+cudaError_t launch_v5(K kernel, const Params& p, long long positions, cudaStream_t st) {
   const size_t smem = V::SMEM;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return e;
@@ -1124,7 +1151,7 @@ cudaError_t launch_v5(K kernel, const Params& p, cudaStream_t st) {
   // consumer warpgroup
   const int nsm = sm_count();
   if (nsm < 2) return cudaErrorInvalidDevice;
-  const long long dense = (long long)p.B * p.Nd * p.Ns;
+  const long long dense = positions;
   long long want = (dense + 2 * TM * V::WGS - 1) / (2 * TM * V::WGS);  // blocks a chain could use
   want = want < 1 ? 1 : (want > nsm / 2 ? nsm / 2 : want);
   Params q = p;
@@ -1197,35 +1224,70 @@ int egnn_edge_dense_max_h() { return MAX_H; }
 int egnn_edge_dense_main_kp(int H) { return H - 1 <= 256 ? 256 : 320; }
 int egnn_edge_dense_main_np(int H) { return H - 1 <= 256 ? 256 : 288; }
 
+// The checks both modes make; sets *done where nothing is left to launch: no destinations, or no
+// sources (zero sums).
+static cudaError_t launch_prelude(int B, int Ns, int Nd, int H, int lda, float* agg_h, float* agg_x, cudaStream_t st,
+                                  bool* done) {
+  *done = true;
+  if (B == 0 || Nd == 0) return cudaSuccess;
+  if (H < 2 || H > MAX_H || Ns > 0xffff || lda % 4 != 0 || lda < H || (long long)B * Nd > 0x7fffffff ||
+      (long long)B * Ns > 0x7fffffff)  // row indices b * Ns + s and b * Nd + d are ints
+    return cudaErrorInvalidValue;
+  if (Ns == 0) {  // no pairs: zero sums
+    cudaError_t e = cudaMemsetAsync(agg_h, 0, size_t(B) * Nd * H * 4, st);
+    if (e == cudaSuccess) e = cudaMemsetAsync(agg_x, 0, size_t(B) * Nd * 3 * 4, st);
+    return e;
+  }
+  *done = false;
+  return cudaSuccess;
+}
+
 int egnn_edge_dense_launch(const void* a_es, const void* a_ed, const void* a_cs, const void* a_cd,
                            const float* w_edij, const float* w_cdij, const void* w2e_main, const float* w2e_tail,
                            const float* b2e, const float* attw, const float* atb, const void* w2c_main,
                            const float* w2c_tail, const float* b2c, const float* wout, const float* x_s,
                            const float* x_d, const uint8_t* adj, float* agg_h, float* agg_x, int B, int Ns, int Nd,
                            int H, int lda, int use_tanh, float coords_range, int bf16, void* stream) {
-  if (B == 0 || Nd == 0) return 0;
-  if (H < 2 || H > MAX_H || Ns > 0xffff || lda % 4 != 0 || lda < H || (long long)B * Nd > 0x7fffffff ||
-      (long long)B * Ns > 0x7fffffff)  // row indices b * Ns + s and b * Nd + d are ints
-    return int(cudaErrorInvalidValue);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (Ns == 0) {  // no pairs: zero sums
-    cudaError_t e = cudaMemsetAsync(agg_h, 0, size_t(B) * Nd * H * 4, st);
-    if (e == cudaSuccess) e = cudaMemsetAsync(agg_x, 0, size_t(B) * Nd * 3 * 4, st);
-    return int(e);
-  }
+  bool done;
+  cudaError_t e = launch_prelude(B, Ns, Nd, H, lda, agg_h, agg_x, st, &done);
+  if (done || e != cudaSuccess) return int(e);
   const int KP = egnn_edge_dense_main_kp(H), NP = egnn_edge_dense_main_np(H);
   Params p{a_es, a_ed, a_cs, a_cd, w_edij, w_cdij, w2e_main, w2c_main, w2e_tail, w2c_tail, b2e, b2c, attw, wout,
            atb, x_s, x_d, adj, agg_h, agg_x, B, Ns, Nd, H, lda, KP, NP, 0, use_tanh, coords_range};
   if (bf16) {
-    if (H - 1 <= 256) return int(launch_v5<Main>(egnn_edge_v5_kernel<256, 1, 256, 2>, p, st));
-    return int(launch_v5<Wide>(egnn_edge_v5_kernel<144, 2, 320, 1>, p, st));
+    const long long positions = (long long)B * Nd * Ns;
+    if (H - 1 <= 256) return int(launch_v5<Main>(egnn_edge_v5_kernel<256, 1, 256, 2, false>, p, positions, st));
+    return int(launch_v5<Wide>(egnn_edge_v5_kernel<144, 2, 320, 1, false>, p, positions, st));
   }
   const size_t smem = smem_bytes(H, false);
-  cudaError_t e = cudaFuncSetAttribute(egnn_edge_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  e = cudaFuncSetAttribute(egnn_edge_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return int(e);
   const dim3 grid((Nd + TD - 1) / TD, B, 2);  // z: the chain (0 edge, 1 coordinate)
   egnn_edge_f32_kernel<<<grid, THREADS_F32, smem, st>>>(p);
   return int(cudaGetLastError());
+}
+
+// The list mode (bf16 only): the operands of egnn_edge_dense_launch with idx (B,Nd,cap) int32 and
+// valid (B,Nd,cap) in place of adj.
+int egnn_edge_list_launch(const void* a_es, const void* a_ed, const void* a_cs, const void* a_cd,
+                          const float* w_edij, const float* w_cdij, const void* w2e_main, const float* w2e_tail,
+                          const float* b2e, const float* attw, const float* atb, const void* w2c_main,
+                          const float* w2c_tail, const float* b2c, const float* wout, const float* x_s,
+                          const float* x_d, const int* idx, const uint8_t* valid, float* agg_h, float* agg_x, int B,
+                          int Ns, int Nd, int cap, int H, int lda, int use_tanh, float coords_range, void* stream) {
+  if (cap < 1) return int(cudaErrorInvalidValue);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  bool done;
+  cudaError_t e = launch_prelude(B, Ns, Nd, H, lda, agg_h, agg_x, st, &done);
+  if (done || e != cudaSuccess) return int(e);
+  const int KP = egnn_edge_dense_main_kp(H), NP = egnn_edge_dense_main_np(H);
+  Params p{a_es, a_ed, a_cs, a_cd, w_edij, w_cdij, w2e_main, w2c_main, w2e_tail, w2c_tail, b2e, b2c, attw, wout,
+           atb, x_s, x_d, nullptr, agg_h, agg_x, B, Ns, Nd, H, lda, KP, NP, 0, use_tanh, coords_range,
+           idx, valid, cap};
+  const long long positions = (long long)B * Nd * cap;
+  if (H - 1 <= 256) return int(launch_v5<Main>(egnn_edge_v5_kernel<256, 1, 256, 2, true>, p, positions, st));
+  return int(launch_v5<Wide>(egnn_edge_v5_kernel<144, 2, 320, 1, true>, p, positions, st));
 }
 
 int egnn_edge_wgmma_probe(const void* a, const void* img, float* out, void* stream) {

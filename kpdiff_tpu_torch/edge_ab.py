@@ -11,14 +11,16 @@ width 256, a data-parallel rank's ll32 at batch 8, kk20, the dense kl/lk
 grids, kk 128 x 128, block windows, a keypoint-sharded rank's kk 24 -> 3) on
 inputs made from one seed. Active pairs follow the main paths' densities
 (kk dense, ll about half). Each row is the device ms per launch, 20 launches
-queued behind a spin kernel (chip_smoke.py's `device_ms`). --clocks adds the
-profiling build's phase shares at flagship kk40 and ll48. Prints one JSON
-line. Two checkouts run in one call on one card: parent, change, change,
-parent.
+queued behind a spin kernel (chip_smoke.py's `device_ms`), its active pairs
+and a digest of its outputs (equal digests: bitwise equal sums). --clocks
+adds the profiling build's phase shares at flagship kk40 and ll48. Prints
+one JSON line. Two checkouts run in one call on one card: parent, change,
+change, parent.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -82,11 +84,15 @@ def main():
         w2e, w2c = E.pack_w2(w2e, cd), E.pack_w2(w2c, cd)
         return (*a, *w_dij, w2e, b2e, attw, atb, w2c, b2c, wout, x_s, x_d, adj)
 
+    def digest(out):
+        return hashlib.sha256(b"".join(o.contiguous().cpu().numpy().tobytes() for o in out)).hexdigest()[:16]
+
     kw = dict(use_tanh=True, coords_range=10.0, compute_dtype=torch.bfloat16)
     rows, clocks = {}, {}
     for name, b, ns, nd, h, density in SHAPES:
         a = inputs(b, ns, nd, h, density)
-        rows[name] = dict(device_ms=queued(lambda: E.egnn_edge_dense(*a, **kw)), pairs=int(a[15].sum()))
+        rows[name] = dict(device_ms=queued(lambda: E.egnn_edge_dense(*a, **kw)), pairs=int(a[15].sum()),
+                          digest=digest(E.egnn_edge_dense(*a, **kw)))
         if args.clocks and name in CLOCK_SHAPES:
             got = E.phase_clocks(*a, **kw)
             by_role = got if isinstance(next(iter(got.values())), dict) else {"all": got}

@@ -32,8 +32,9 @@ call each instead of the step's 1,000-3,500 kernel launches.
 There is no fallback: a failure to capture or replay raises.
 
 Launch counting: the edge kernel's wrapper counts a call made while a
-stream captures in `egnn_edge.captured`, not in `launches`; a graph keeps
-the number it captured and each replay adds it to `egnn_edge.launches`.
+stream captures in `egnn_edge.captured`, not in `launches` (and a list
+mode call in `list_captured` too); a graph keeps the numbers it captured
+and each replay adds them to `egnn_edge.launches` and `list_launches`.
 
 Tracing (utils/profiling.py): every CUDA capture is armed, so that the
 step's `device_mark`s and the begin and end stamps the runner adds time its
@@ -146,12 +147,14 @@ class ChainGraph:
     generator: Optional[torch.Generator] = None  # held so that the key's id() stays this generator's
     graph: Any = None
     launches: int = 0  # edge-kernel launches a replay makes (captured calls)
+    list_launches: int = 0  # of them, the kernel's list mode
     replays: int = 0
     timers: Optional[profiling.GraphTimers] = None  # the device timers of an armed capture
 
     def replay(self):
         self.graph.replay()
         egnn_edge.launches += self.launches
+        egnn_edge.list_launches += self.list_launches
         self.replays += 1
 
 
@@ -239,13 +242,14 @@ class ChainGraphs:
         torch.cuda.current_stream(dev).wait_stream(self._stream)
 
     def _capture_step(self, entry, step):
-        before, pool_before = egnn_edge.captured, self.pool_bytes()
+        before, list_before, pool_before = egnn_edge.captured, egnn_edge.list_captured, self.pool_bytes()
         with profiling.span(f"{self.name}.capture") as sp:
             if self._capture is cuda_capture:
                 entry.graph, entry.timers = self._timed_capture(entry, step)
             else:
                 entry.graph = self._capture(step, entry.static, entry.generator, self._pool, self._stream)
         entry.launches = egnn_edge.captured - before
+        entry.list_launches = egnn_edge.list_captured - list_before
         pool = self.pool_bytes()
         self.captures.append(dict(inputs=tree_shapes(entry.static),
                                   capture_s=sp.seconds, pool_bytes=pool,

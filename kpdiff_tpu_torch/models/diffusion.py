@@ -195,9 +195,8 @@ class KeypointDiffusion(nn.Module):
         the exact radius graph's neighbor list (the block layout only covers
         the edges within its windows). `min_cap` pins a grow-only cap.
         The list is what serving counts (serve.kk_nbr_slots / _edges); the
-        EGNN dynamics run it as its dense (B, K, K) mask through the edge
-        kernel where the kernel is taken, as the list elsewhere
-        (models/dynamics_egnn.py)."""
+        EGNN dynamics run it through the edge kernel's list mode where the
+        kernel is taken, in plain PyTorch elsewhere (models/egnn.py)."""
         if list_cap(kk):
             return kk
         r = self._kk_cutoff()

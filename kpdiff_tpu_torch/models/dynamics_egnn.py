@@ -12,37 +12,39 @@ feature channel, so the working width is hidden_nf + 1. Each conv layer
 calls one `EGNNEdge` per edge type on its edge set, whatever its form
 (ops/edge_sets.py).
 
-Two edge sets change form with the route, decided once a call here
+The kNN kl edges change form with the route, decided once a call here
 (`on_kernel`: CUDA tensors, nothing recording autograd). Where the edge
-kernel is taken, the kNN kl edges are a dense (B, K, Nl) mask (lk its
-transpose) and a kk neighbor list is scattered once a call into its dense
-(B, K, K) mask (`NbrList.adjacency`); elsewhere (training, the CPU, where
-a dense plain version would do the whole grid's pair work) they stay a
-`PairList` and a `NbrList`, which EGNNEdge runs in its `pairs` and `nbr`
-forms. Each pair of forms carries the same edge set, and message_norm's
-kk edge count is read from the list's `valid` on both routes. The
-counters dynamics.kl_route_kernel / dynamics.kl_route_pairs (kNN kl and
-lk module calls) and dynamics.kk_route_kernel / dynamics.kk_route_list (kk
-module calls of a neighbor-list kk; a dense or block kk counts on neither)
-in utils/profiling.py count the calls by route.
+kernel is taken they are a dense (B, K, Nl) mask (lk its transpose);
+elsewhere (training, the CPU, where a dense plain version would do the
+whole grid's pair work) they stay a `PairList`, which EGNNEdge runs in its
+`pairs` form. A kk neighbor list stays a list on either route: on the
+kernel's it is handed on as a `KernelList` (its indices cast to int32
+once a call), which EGNNEdge runs through the kernel's list mode
+(`nbr_kernel`), so no (B, K, K) mask is built; elsewhere as the `NbrList`
+it is, run in its `nbr` form. message_norm's kk edge count is read from
+the list's `valid` on both routes. The counters dynamics.kl_route_kernel /
+dynamics.kl_route_pairs (kNN kl and lk module calls) and
+dynamics.kk_route_kernel / dynamics.kk_route_list (kk module calls of a
+neighbor-list kk; a dense or block kk counts on neither) in
+utils/profiling.py count the calls by route.
 
 Every dense edge grid (ll, kl and lk while dense or a kNN mask, kk while
-dense, a neighbor list's mask or the block windows) goes through the CUDA
+dense or the block windows) and a kk neighbor list go through the CUDA
 edge kernel under no_grad, as the JAX package's sampler does with
 `dynamics.use_pallas_sampling` for ll, dense kl, lk and dense kk; the JAX
 package's kNN pairs, kk neighbor list and block branch never take its
-Pallas kernel, the port's do. While autograd records they take the
-kernel's plain version. `remat` recomputes each conv layer in the
+Pallas kernel, the port's do. While autograd records the dense grids take
+the kernel's plain version. `remat` recomputes each conv layer in the
 backward pass (torch.utils.checkpoint), storing only the layer boundaries.
 
 With `kp_shard` (parallel/kp_shard.py::ShardContext) the keypoint tensors
 are this rank's rows: kl messages into the replicated ligand are partial
 over the rank's keypoint sources and summed over the 'model' group, kk
 takes every keypoint as a source (gathered h and x; a dense kk arrives as
-(B, K, K/n), a neighbor list indexes the global rows and its mask is
-(B, K, K/n) too, the block layout runs on the gathered keypoints and keeps
-its rows), lk and the keypoint update stay local, and the message_norm 0
-counts are summed over the group.
+(B, K, K/n), a neighbor list as (B, K/n, cap) indexing the global rows,
+the block layout runs on the gathered keypoints and keeps its rows), lk
+and the keypoint update stay local, and the message_norm 0 counts are
+summed over the group.
 """
 from __future__ import annotations
 
@@ -55,7 +57,7 @@ from torch.utils.checkpoint import checkpoint
 from kpdiff_tpu_torch.models.egnn import EGNNEdge, NodeUpdate, records_grad
 from kpdiff_tpu_torch.models.nn import MLP
 from kpdiff_tpu_torch.ops.cuda.egnn_edge import kernel_device
-from kpdiff_tpu_torch.ops.edge_sets import PairList, edge_count, list_cap, transpose
+from kpdiff_tpu_torch.ops.edge_sets import KernelList, PairList, edge_count, list_cap, transpose
 from kpdiff_tpu_torch.ops.neighbors import dense_knn_adjacency, dense_radius_adjacency, knn_indices
 from kpdiff_tpu_torch.utils import profiling
 from kpdiff_tpu_torch.utils.profiling import device_mark
@@ -159,10 +161,11 @@ class EGNNDynamics(nn.Module):
         return mods
 
     def on_kernel(self, *inputs) -> bool:
-        """Whether the kNN kl and lk edges and a neighbor-list kk of a call on
-        `inputs` go through the edge kernel as dense masks: the tensors where
-        the kernel runs (CUDA) and nothing recording autograd. edge_kl, edge_lk
-        and edge_kk are always in the kernel's configuration."""
+        """Whether the kNN kl and lk edges of a call on `inputs` go through
+        the edge kernel as dense masks, and a neighbor-list kk through its
+        list mode: the tensors where the kernel runs (CUDA) and nothing
+        recording autograd. edge_kl, edge_lk and edge_kk are always in the
+        kernel's configuration."""
         return kernel_device(inputs[0].device) and not records_grad(self, *inputs)
 
     def forward(self, lig_x, lig_h, lig_mask, kp_x, kp_h, kp_mask, t, kk_edges=None, kp_shard=None):
@@ -204,11 +207,11 @@ class EGNNDynamics(nn.Module):
                 raise ValueError("kk_edges required when update_kp_feat=True")
             edges["kk"] = kk_edges
             if list_cap(kk_edges):
+                # edge_kk reads the list as it is (a rank's list indexes the global rows) on either route
                 profiling.count("dynamics.kk_route_kernel" if on_kernel else "dynamics.kk_route_list",
                                 self.n_layers)
-                if on_kernel:
-                    # sources are every keypoint (a rank's list indexes the global rows): (B, K, K / n)
-                    edges["kk"] = kk_edges.adjacency(k if sh is None else k * sh.size)
+                if on_kernel:  # the list mode's operands (int32 indices) once a call, not once a layer
+                    edges["kk"] = KernelList(kk_edges.idx.to(torch.int32).contiguous(), kk_edges.valid.contiguous())
 
         z = {}
         if self.message_norm == 0 and self.z_semantics == "executed":

@@ -22,8 +22,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from kpdiff_tpu_torch.models.nn import MLP, LayerNorm, compute_dtype, uniform_, xavier_uniform_scaled
-from kpdiff_tpu_torch.ops.cuda.egnn_edge import egnn_edge_dense, egnn_edge_dense_plain, pack_w2, row_stride
-from kpdiff_tpu_torch.ops.edge_sets import Blocks, NbrList, PairList, refuse
+from kpdiff_tpu_torch.ops.cuda.egnn_edge import (egnn_edge_dense, egnn_edge_dense_plain, egnn_edge_list, pack_w2,
+                                                 row_stride)
+from kpdiff_tpu_torch.ops.edge_sets import Blocks, KernelList, NbrList, PairList, refuse
 from kpdiff_tpu_torch.ops.neighbors import gather_rows
 
 
@@ -45,7 +46,7 @@ class EGNNEdge(nn.Module):
     `nbr` over a destination-major neighbor list and `pairs` over a kNN pair
     list anchored at one node set. `forward` takes an edge set in any form
     of ops/edge_sets.py and runs the form it names; a `Blocks` runs `dense`
-    on its windows.
+    on its windows, and a `KernelList` runs `nbr_kernel` (below).
 
     `dense` has three routes. In the dynamics' configuration (`kernel_ok`:
     two coord hidden layers, coordinates computed, no edge features) the
@@ -61,9 +62,12 @@ class EGNNEdge(nn.Module):
     package's `pallas_ok` never does: it runs the JAX package's XLA path in
     plain PyTorch on every device (`_generic`).
 
-    `nbr` and `pairs` run in plain PyTorch. Where the edge kernel is taken
-    the dynamics hands the same edge sets in as dense masks instead
-    (models/dynamics_egnn.py).
+    A neighbor list takes the kernel's list mode (`nbr_kernel`: the
+    projections of `kernel`, then `egnn_edge_list`, forward only) where the
+    dynamics chose the kernel's route and handed it in as a `KernelList`
+    (models/dynamics_egnn.py, the one place that decides); a plain `NbrList`
+    runs `nbr`. `nbr` and `pairs` run in plain PyTorch; where the edge
+    kernel is taken the dynamics hands kNN pairs in as dense masks instead.
     """
 
     def __init__(self, f_in: int, hidden_size: int, gen: torch.Generator, use_tanh: bool = False,
@@ -134,29 +138,44 @@ class EGNNEdge(nn.Module):
             self._pack = (key, pack)
         return self._pack[1]
 
-    def kernel(self, h_src, h_dst, x_src, x_dst, adj):
-        """Messages over a dense (B, Ns, Nd) pair grid through the kernel's
-        entry `egnn_edge_dense` (the CUDA kernel on CUDA tensors, its plain
-        version on CPU tensors), forward only: both chains' per-node
-        projections in one f32 product per side, rounded to the compute
-        dtype, then the per-pair work on the active pairs of `adj`.
-        Sources take the first layers' `w_src`, destinations `w_dst`."""
+    def _kernel_operands(self, h_src, h_dst, x_src, x_dst):
+        """The kernel entries' operands before the edges: both chains'
+        per-node projections in one f32 product per side, rounded to the
+        compute dtype (sources take the first layers' `w_src`, destinations
+        `w_dst`), the cached weights and the positions in f32."""
         f32 = torch.float32
         w = self._kernel_weights()
         h = self.edge_b.shape[0]
         lda = row_stride(h)
         a_src = (h_src.to(f32) @ w["w_src"]).to(self.cd)
         a_dst = (h_dst.to(f32) @ w["w_dst"] + w["b_dst"]).to(self.cd)
-        return egnn_edge_dense(
-            a_src[..., :h], a_dst[..., :h], a_src[..., lda:lda + h], a_dst[..., lda:lda + h],
-            w["w_edij"], w["w_cdij"], w["w2e"], w["b2e"], w["attw"], w["atb"],
-            w["w2c"], w["b2c"], w["wout"], x_src.to(f32).contiguous(), x_dst.to(f32).contiguous(),
-            adj.contiguous(), use_tanh=self.use_tanh, coords_range=self.coords_range, compute_dtype=self.cd)
+        return (a_src[..., :h], a_dst[..., :h], a_src[..., lda:lda + h], a_dst[..., lda:lda + h],
+                w["w_edij"], w["w_cdij"], w["w2e"], w["b2e"], w["attw"], w["atb"],
+                w["w2c"], w["b2c"], w["wout"], x_src.to(f32).contiguous(), x_dst.to(f32).contiguous())
+
+    def kernel(self, h_src, h_dst, x_src, x_dst, adj):
+        """Messages over a dense (B, Ns, Nd) pair grid through the kernel's
+        entry `egnn_edge_dense` (the CUDA kernel on CUDA tensors, its plain
+        version on CPU tensors), forward only: the per-node projections,
+        then the per-pair work on the active pairs of `adj`."""
+        return egnn_edge_dense(*self._kernel_operands(h_src, h_dst, x_src, x_dst), adj.contiguous(),
+                               use_tanh=self.use_tanh, coords_range=self.coords_range, compute_dtype=self.cd)
+
+    def nbr_kernel(self, h_src, h_dst, x_src, x_dst, edges: NbrList):
+        """Messages over a destination-major neighbor list through the
+        kernel's entry `egnn_edge_list` (its list mode, which reads the list
+        and builds no mask), forward only: the projections of `kernel`, then
+        the per-pair work on the list's valid slots."""
+        return egnn_edge_list(*self._kernel_operands(h_src, h_dst, x_src, x_dst), edges.idx,
+                              edges.valid.contiguous(), use_tanh=self.use_tanh, coords_range=self.coords_range,
+                              compute_dtype=self.cd)
 
     def forward(self, h_src, h_dst, x_src, x_dst, edges, edge_feat=None):
         """-> (agg_h (B, Nd, H) f32, agg_x (B, Nd, 3)) of the edge set `edges`."""
         if torch.is_tensor(edges):
             return self.dense(h_src, h_dst, x_src, x_dst, edges, edge_feat)
+        if isinstance(edges, KernelList):
+            return self.nbr_kernel(h_src, h_dst, x_src, x_dst, edges)
         if isinstance(edges, NbrList):
             return self.nbr(h_src, h_dst, x_src, x_dst, edges.idx, edges.valid, edge_feat)
         if isinstance(edges, PairList):

@@ -17,17 +17,23 @@ compute dtype (the reference rounds them first) as rows at a stride of a
 multiple of 8 elements (`row_stride`; the module's matrix products write them
 so, `aligned_rows` copies other tensors into it).
 
-`egnn_edge_dense` is the entry: on CUDA tensors it launches the kernel (built
-with nvcc at first use into `kpdiff_tpu_torch/_build/`, loaded with ctypes)
-or raises; on CPU tensors it runs `egnn_edge_dense_plain`, the same function
-in plain PyTorch with the same rounding places. There is no fallback from
-the kernel to the plain version. `launches` counts kernel launches;
-`captured` counts the calls recorded into a CUDA graph while a stream
-captures (they launch nothing then): the graph runner
-(`models/chain_graph.py`) adds a graph's captured count to `launches` at
-every replay. The same library holds the tracer's device timer
-(`device_stamp`, utils/profiling.py) and the node count of a graph under
-capture (`capture_kernel_nodes`).
+`egnn_edge_dense` is the entry for a dense (B, Ns, Nd) mask: on CUDA
+tensors it launches the kernel (built with nvcc at first use into
+`kpdiff_tpu_torch/_build/`, loaded with ctypes) or raises; on CPU tensors
+it runs `egnn_edge_dense_plain`, the same function in plain PyTorch with
+the same rounding places. There is no fallback from the kernel to the plain
+version. `egnn_edge_list` is the entry for a destination-major neighbor
+list (idx, valid) (B, Nd, cap): in bf16 on CUDA tensors the kernel's list
+mode, which fills its tiles from the list's slots where the mask mode scans
+all Ns sources of each destination; elsewhere the list's mask through
+`egnn_edge_dense`. `launches` counts kernel launches of both entries,
+`list_launches` those of the list mode; `captured` and `list_captured`
+count the calls recorded into a CUDA graph while a stream captures (they
+launch nothing then): the graph runner (`models/chain_graph.py`) adds a
+graph's captured counts to `launches` and `list_launches` at every replay.
+The same library holds the tracer's device timer (`device_stamp`,
+utils/profiling.py) and the node count of a graph under capture
+(`capture_kernel_nodes`).
 """
 from __future__ import annotations
 
@@ -42,8 +48,12 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-launches = 0  # kernel launches made by egnn_edge_dense (CUDA tensors only), replays of captured ones included
+from kpdiff_tpu_torch.ops.edge_sets import NbrList
+
+launches = 0  # kernel launches (CUDA tensors only), replays of captured ones included
 captured = 0  # calls recorded into a CUDA graph (no launch at the call; each replay launches them)
+list_launches = 0  # of `launches`, those of the list mode (egnn_edge_list)
+list_captured = 0  # of `captured`, those of the list mode
 
 SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "egnn_edge.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
@@ -195,6 +205,8 @@ def _load(phase_clocks: bool = False):
             vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.egnn_edge_dense_launch.argtypes = [vp] * 20 + [i, i, i, i, i, i, f, i, vp]
             lib.egnn_edge_dense_launch.restype = i
+            lib.egnn_edge_list_launch.argtypes = [vp] * 21 + [i, i, i, i, i, i, i, f, vp]
+            lib.egnn_edge_list_launch.restype = i
             lib.egnn_edge_dense_smem_bytes.argtypes = [i, i]
             lib.egnn_edge_dense_smem_bytes.restype = ctypes.c_size_t
             lib.egnn_edge_dense_max_h.argtypes = []
@@ -349,22 +361,53 @@ def egnn_edge_dense(a_es, a_ed, a_cs, a_cd, w_edij, w_cdij, w2e, b2e, attw, atb,
     (`pack_w2`). b2e/b2c, attw and wout (H); atb (1). x_s (B,Ns,3),
     x_d (B,Nd,3); adj (B,Ns,Nd) bool.
     """
-    global launches, captured
-    args = (a_es, a_ed, a_cs, a_cd, w_edij, w_cdij, w2e, b2e, attw, atb, w2c, b2c, wout, x_s, x_d, adj)
-    if compute_dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"compute_dtype {compute_dtype} is not supported (float32, bfloat16)")
-    if a_es.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"egnn_edge_dense runs on CUDA or CPU tensors, got {a_es.device}")
+    args = (a_es, a_ed, a_cs, a_cd, w_edij, w_cdij, w2e, b2e, attw, atb, w2c, b2c, wout, x_s, x_d)
     lda = _check_operands(args, compute_dtype)
+    _check_adj(adj, args)
     if not kernel_device(a_es.device):
-        return egnn_edge_dense_plain(*args, use_tanh=use_tanh, coords_range=coords_range,
+        return egnn_edge_dense_plain(*args, adj, use_tanh=use_tanh, coords_range=coords_range,
                                      compute_dtype=compute_dtype)
-    out = _launch(False, args, lda, use_tanh, coords_range, compute_dtype)
+    out = _launch(False, args, (adj,), lda, use_tanh, coords_range, compute_dtype)
+    _count(list_mode=False)
+    return out
+
+
+def egnn_edge_list(a_es, a_ed, a_cs, a_cd, w_edij, w_cdij, w2e, b2e, attw, atb,
+                   w2c, b2c, wout, x_s, x_d, idx, valid, *, use_tanh: bool, coords_range: float,
+                   compute_dtype: torch.dtype = torch.bfloat16):
+    """egnn_edge_dense over a destination-major neighbor list in place of
+    the mask: source idx[b, d, j] to destination d wherever valid[b, d, j],
+    idx (B, Nd, cap) int32 or int64 (cap >= 1), valid (B, Nd, cap) bool; the
+    other operands as egnn_edge_dense's. A destination's valid slots name
+    distinct sources (as compact_kk's lists do).
+
+    In bf16 on CUDA tensors it launches the kernel's list mode on idx as
+    int32; its sums take a destination's rows in slot order (bitwise the
+    mask mode's where the valid slots name ascending sources). Elsewhere it
+    runs egnn_edge_dense on the list's mask (`NbrList.adjacency`): the plain
+    version on CPU tensors, and in f32 on CUDA tensors the f32 mode (the
+    check of the algorithm, which has no list mode)."""
+    args = (a_es, a_ed, a_cs, a_cd, w_edij, w_cdij, w2e, b2e, attw, atb, w2c, b2c, wout, x_s, x_d)
+    lda = _check_operands(args, compute_dtype)
+    _check_list(idx, valid, args)
+    if not kernel_device(a_es.device) or compute_dtype == torch.float32:
+        return egnn_edge_dense(*args, NbrList(idx, valid).adjacency(a_es.shape[1]), use_tanh=use_tanh,
+                               coords_range=coords_range, compute_dtype=compute_dtype)
+    out = _launch(False, args, (idx.to(torch.int32).contiguous(), valid), lda, use_tanh, coords_range,
+                  compute_dtype)
+    _count(list_mode=True)
+    return out
+
+
+def _count(list_mode: bool):
+    """Counts a kernel launch, or a call recorded while the current stream captures."""
+    global launches, captured, list_launches, list_captured
     if torch.cuda.is_current_stream_capturing():
         captured += 1
+        list_captured += list_mode
     else:
         launches += 1
-    return out
+        list_launches += list_mode
 
 
 def phase_clocks(*args, use_tanh: bool, coords_range: float, compute_dtype: torch.dtype) -> dict:
@@ -374,10 +417,11 @@ def phase_clocks(*args, use_tanh: bool, coords_range: float, compute_dtype: torc
     "coordinate helper") summed over the launch. Not counted in `launches`;
     the production library is not involved."""
     lib = _load(phase_clocks=True)
-    lda = _check_operands(args, compute_dtype)
+    lda = _check_operands(args[:15], compute_dtype)
+    _check_adj(args[15], args[:15])
     err = lib.egnn_edge_phase_clocks_reset()
     if err == 0:
-        _launch(True, args, lda, use_tanh, coords_range, compute_dtype)
+        _launch(True, args[:15], args[15:], lda, use_tanh, coords_range, compute_dtype)
         torch.cuda.synchronize()
         buf = (ctypes.c_ulonglong * (4 * len(PHASES)))()
         err = lib.egnn_edge_phase_clocks_read(ctypes.addressof(buf))
@@ -389,9 +433,13 @@ def phase_clocks(*args, use_tanh: bool, coords_range: float, compute_dtype: torc
 
 
 def _check_operands(args, compute_dtype) -> int:
-    """Shapes, types and layouts of egnn_edge_dense's operands; returns the
-    a_* row stride."""
-    (a_es, a_ed, a_cs, a_cd, w_edij, w_cdij, w2e, b2e, attw, atb, w2c, b2c, wout, x_s, x_d, adj) = args
+    """Shapes, types and layouts of the node and weight operands (both
+    entries' first 15) and the compute dtype; returns the a_* row stride."""
+    (a_es, a_ed, a_cs, a_cd, w_edij, w_cdij, w2e, b2e, attw, atb, w2c, b2c, wout, x_s, x_d) = args
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"compute_dtype {compute_dtype} is not supported (float32, bfloat16)")
+    if a_es.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the edge kernel runs on CUDA or CPU tensors, got {a_es.device}")
     dev = a_es.device
     b, ns, h = a_es.shape
     nd = a_ed.shape[1]
@@ -408,14 +456,32 @@ def _check_operands(args, compute_dtype) -> int:
         _check(name, t, shape, torch.float32, dev)
     _check_w2("w2e", w2e, h, compute_dtype, dev)
     _check_w2("w2c", w2c, h, compute_dtype, dev)
-    _check("adj", adj, (b, ns, nd), torch.bool, dev)
     if ns > MAX_SOURCES:
         raise ValueError(f"Ns={ns} exceeds the kernel's limit {MAX_SOURCES} (16-bit source index)")
     return ldas.pop()
 
 
-def _launch(clocks: bool, args, lda, use_tanh, coords_range, compute_dtype):
-    (a_es, a_ed, a_cs, a_cd, w_edij, w_cdij, w2e, b2e, attw, atb, w2c, b2c, wout, x_s, x_d, adj) = args
+def _check_adj(adj, args):
+    """The mask (B, Ns, Nd) bool of the operands `args`."""
+    _check("adj", adj, (args[0].shape[0], args[0].shape[1], args[1].shape[1]), torch.bool, args[0].device)
+
+
+def _check_list(idx, valid, args):
+    """The neighbor list idx, valid (B, Nd, cap), cap >= 1, of the operands `args`."""
+    b, nd = args[1].shape[:2]
+    if idx.dim() != 3 or tuple(idx.shape[:2]) != (b, nd) or idx.shape[2] < 1:
+        raise ValueError(f"idx: shape {tuple(idx.shape)}, expected ({b}, {nd}, cap >= 1)")
+    if idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"idx: dtype {idx.dtype}, expected int32 or int64")
+    if idx.device != args[0].device:
+        raise ValueError(f"idx: on {idx.device}, expected {args[0].device}")
+    _check("valid", valid, idx.shape, torch.bool, args[0].device)
+
+
+def _launch(clocks: bool, args, edges, lda, use_tanh, coords_range, compute_dtype):
+    """One launch on the 15 operands `args` and the edges: (adj,) in the mask
+    mode, (idx int32, valid) in the list mode (bf16)."""
+    (a_es, a_ed, a_cs, a_cd, w_edij, w_cdij, w2e, b2e, attw, atb, w2c, b2c, wout, x_s, x_d) = args
     dev = a_es.device
     b, ns, h = a_es.shape
     nd = a_ed.shape[1]
@@ -428,13 +494,17 @@ def _launch(clocks: bool, args, lda, use_tanh, coords_range, compute_dtype):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         ptrs = [t.data_ptr() for t in (a_es, a_ed, a_cs, a_cd, w_edij, w_cdij, w2e.main, w2e.tail, b2e, attw, atb,
-                                       w2c.main, w2c.tail, b2c, wout, x_s, x_d, adj.view(torch.uint8),
-                                       agg_h, agg_x)]
-        err = lib.egnn_edge_dense_launch(*ptrs, b, ns, nd, h, lda, int(bool(use_tanh)),
-                                         float(coords_range), int(bf16), stream)
+                                       w2c.main, w2c.tail, b2c, wout, x_s, x_d, *edges, agg_h, agg_x)]
+        if len(edges) == 1:
+            entry = "egnn_edge_dense"
+            err = lib.egnn_edge_dense_launch(*ptrs, b, ns, nd, h, lda, int(bool(use_tanh)),
+                                             float(coords_range), int(bf16), stream)
+        else:
+            entry = "egnn_edge_list"
+            err = lib.egnn_edge_list_launch(*ptrs, b, ns, nd, int(edges[0].shape[2]), h, lda,
+                                            int(bool(use_tanh)), float(coords_range), stream)
     if err != 0:
-        raise RuntimeError(f"egnn_edge_dense kernel launch failed: "
-                           f"{lib.egnn_edge_error_string(err).decode()} ({err})")
+        raise RuntimeError(f"{entry} kernel launch failed: {lib.egnn_edge_error_string(err).decode()} ({err})")
     return agg_h, agg_x
 
 

@@ -6,6 +6,8 @@ An edge set joins source nodes to destination nodes of one batch:
   (ll, kl and lk on the kernel's route, a dense kk);
 - `NbrList(idx, valid)`: a destination-major (B, Nd, cap) list of source
   indices (kk after compact_kk or with kk_layout 'nbr', the encoders' rr);
+  `KernelList`, a NbrList that the dynamics hands to the edge kernel's
+  list mode, reads as one everywhere else;
 - `PairList(idx, valid, anchor_is_src)`: the keypoint-anchored kNN pairs
   (B, K, k), idx into the other node set; the keypoints send (kl,
   anchor_is_src) or receive (lk, its `transpose`);
@@ -43,6 +45,16 @@ class NbrList(NamedTuple):
         adj = torch.zeros((b, nd, n_src + 1), dtype=torch.bool, device=self.idx.device)
         adj.scatter_(-1, torch.where(self.valid, self.idx, n_src), True)  # slots not valid: the spare column
         return adj[..., :n_src].transpose(1, 2).contiguous()
+
+
+class KernelList(NbrList):
+    """A NbrList on the edge kernel's route: int32 idx, both tensors
+    contiguous. Only the EGNN dynamics makes one, where it takes the kernel
+    (models/dynamics_egnn.py::EGNNDynamics.on_kernel), and EGNNEdge runs it
+    through the kernel's list mode; any other reader takes it as the NbrList
+    it is."""
+
+    __slots__ = ()
 
 
 class PairList(NamedTuple):

@@ -22,7 +22,9 @@ device time on CUDA events. For an EGNN config, then, for each shape of the
 edge kernel on that bucket's path, one launch of the kernel's profiling
 build (-DEGNN_EDGE_PHASE_CLOCKS) on the inputs the path gave it: the share
 of the warps' SM clocks spent in each in-kernel phase, for each chain's
-consumer and helper warps. --out also writes the tables to a file.
+consumer and helper warps (mask mode shapes; the eager steps' listing
+shows the list mode's launches too, as "<shape> list"). --out also writes
+the tables to a file.
 
 --train profiles training of --config instead (the flagship by default): molgen's 256-complex split at
 full padding, the config's batch size, the port's train step, eagerly
@@ -225,13 +227,18 @@ def main():
         finally:
             egnn_mod.egnn_edge_dense = real
         torch.cuda.synchronize()
-        chain = []  # (shape key, adj) of every edge-kernel launch in the profiled steps
+        chain = []  # (shape key, adj or the list's valid) of every edge-kernel launch in the profiled steps
 
         def listing(*a, **kw):
             chain.append((_edge_key(role, a), a[15]))
             return real(*a, **kw)
 
-        egnn_mod.egnn_edge_dense = listing
+        def listing_list(*a, **kw):  # the list mode (a neighbor-list kk)
+            chain.append((_edge_key(role, a) + " list", a[16]))
+            return real_list(*a, **kw)
+
+        real_list = egnn_mod.egnn_edge_list
+        egnn_mod.egnn_edge_dense, egnn_mod.egnn_edge_list = listing, listing_list
         try:
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
@@ -239,7 +246,7 @@ def main():
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
         finally:
-            egnn_mod.egnn_edge_dense = real
+            egnn_mod.egnn_edge_dense, egnn_mod.egnn_edge_list = real, real_list
         # kernel rows only: an operator's row repeats the time of the kernels it launched
         table = _kernel_table(prof, STEPS, wall)
         lines = [f"bucket {n_lig}: kk={layout_name(kk)} eager steps: {table[0]}"] + table[1:]

@@ -42,9 +42,10 @@ live graph stays where it is. A capture also counts its graph's kernel
 nodes once, from the graph itself (`cudaGraphGetNodes`), the stamps left out.
 
 `snapshot()` returns span totals, counters, device timers by runner kind
-and the counters the port keeps elsewhere (the edge kernel's launches and
-captured calls, the live runners' captures and replays). `device_trace`
-writes torch.profiler's Chrome trace, spans included.
+and the counters the port keeps elsewhere (the edge kernel's launches,
+those of its list mode and captured calls, the live runners' captures and
+replays). `device_trace` writes torch.profiler's Chrome trace, spans
+included.
 """
 from __future__ import annotations
 
@@ -295,6 +296,7 @@ class Tracer:
         out_timers = {kind: _timer_rows(kind, group, [rows[id(t)] for t in group]) for kind, group in kinds.items()}
         counters["egnn_edge.launches"] = egnn_edge.launches
         counters["egnn_edge.captured"] = egnn_edge.captured
+        counters["egnn_edge.list_launches"] = egnn_edge.list_launches
         for runner in list(self._runners):
             name = runner.name
             counters[f"{name}.captures_recorded"] = counters.get(f"{name}.captures_recorded", 0) + len(runner.captures)

@@ -26,4 +26,4 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "card: needs an NVIDIA card (the CUDA edge kernel has no CPU mode); skips "
         "without one. On the card, where JAX is absent: python3 -m pytest --noconftest -m card "
-        "tests/test_torch_port_kl_route.py tests/test_torch_port_kk_route.py")
+        "tests/test_torch_port_kl_route.py tests/test_torch_port_kk_route.py tests/test_torch_port_edge_list.py")

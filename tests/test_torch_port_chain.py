@@ -44,6 +44,7 @@ from kpdiff_tpu_torch.cli import import_params
 from kpdiff_tpu_torch.data.molgen import molgen_splits_for_config
 from kpdiff_tpu_torch.models import dynamics_egnn
 from kpdiff_tpu_torch.models.chain_graph import ChainGraphs, host_capture
+from kpdiff_tpu_torch.models.egnn import EGNNEdge
 from kpdiff_tpu_torch.models.complex import synthetic_batch as tsyn
 from kpdiff_tpu_torch.models.size_dist import save_dataset_histogram
 from kpdiff_tpu_torch.ops.neighbors import radius_neighbor_list
@@ -219,8 +220,11 @@ def _audit_model(name):
 @pytest.mark.parametrize("name", ["flagship", "egnn_ca:compact_kk", "gvp_40kp", "kl_k0", "ll_k16",
                                   "egnn_ca:compact_kk:kernel_route"])
 def test_step_capture_audit(name, monkeypatch):
-    if name.endswith(":kernel_route"):  # the kk list's mask and the kNN masks, as on the card
+    list_calls = []
+    if name.endswith(":kernel_route"):  # the kk list in the list mode's form and the kNN masks, as on the card
         monkeypatch.setattr(dynamics_egnn, "kernel_device", lambda device: True)
+        real_list_form = EGNNEdge.nbr_kernel
+        monkeypatch.setattr(EGNNEdge, "nbr_kernel", lambda *a: list_calls.append(1) or real_list_form(*a))
     tm, enc, kk = _audit_model(name)
     gen = torch.Generator().manual_seed(0)
     st, k, _ = tm.start_chain(enc, kk, sample_steps=4, generator=gen)
@@ -237,6 +241,8 @@ def test_step_capture_audit(name, monkeypatch):
     assert not names & HOST_OPS, sorted(names & HOST_OPS)
     assert logs[0] == logs[1]  # no host value changes from one step to the next
     assert int(st["index"]) == 3
+    # the kernel route runs edge_kk's list form in every layer of the three steps, and no other case does
+    assert len(list_calls) == (3 * tm.dynamics.n_layers if name.endswith(":kernel_route") else 0)
 
 
 def test_audit_sees_host_syncs():

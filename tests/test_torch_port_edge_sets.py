@@ -16,7 +16,8 @@ from kpdiff_tpu_torch.config import load_config, model_from_config
 from kpdiff_tpu_torch.models.chain_graph import clone_tree, copy_tree, tree_signature
 from kpdiff_tpu_torch.models.egnn import EGNNEdge
 from kpdiff_tpu_torch.models.gvp import GVPEdgeMessages
-from kpdiff_tpu_torch.ops.edge_sets import Blocks, NbrList, PairList, as_kk, edge_count, layout_name, transpose
+from kpdiff_tpu_torch.ops.edge_sets import (Blocks, KernelList, NbrList, PairList, as_kk, edge_count, layout_name,
+                                            transpose)
 from kpdiff_tpu_torch.ops.spatial import block_windows
 from kpdiff_tpu_torch.parallel.mesh import Mesh, shard_batch
 from kpdiff_tpu_torch.serve import _to_device
@@ -33,7 +34,8 @@ def _forms():
     valid = torch.rand(B, N, 3, generator=g) < 0.6
     blocks = torch.rand(B, 2, 12, 4, generator=g) < 0.3
     return {"dense": (dense, dense.sum((1, 2))), "nbr": (NbrList(idx, valid), valid.sum((1, 2))),
-            "pairs": (PairList(idx, valid), valid.sum((1, 2))), "block": (Blocks(blocks), blocks.sum((1, 2, 3)))}
+            "pairs": (PairList(idx, valid), valid.sum((1, 2))), "block": (Blocks(blocks), blocks.sum((1, 2, 3))),
+            "kernel_list": (KernelList(idx.to(torch.int32), valid), valid.sum((1, 2)))}
 
 
 @pytest.mark.parametrize("form", ["nbr", "pairs", "block"])
@@ -66,13 +68,15 @@ def test_named_types_survive_the_tree_helpers(form):
         assert type(shard_batch(e, mesh)) is type(e) and torch.equal(shard_batch(e, mesh)[0], e[0][1:])
 
 
-@pytest.mark.parametrize("form", ["dense", "nbr", "pairs", "block"])
+@pytest.mark.parametrize("form", ["dense", "nbr", "pairs", "block", "kernel_list"])
 def test_edge_count_and_layout_name(form):
     """edge_count: edges per graph, the valid slots of a list; layout_name:
-    the serve.chunks_kk_<layout> names, nbr with its cap."""
+    the serve.chunks_kk_<layout> names, nbr with its cap (a KernelList is
+    the neighbor list it carries)."""
     e, want = _forms()[form]
     assert torch.equal(edge_count(e), want)
-    assert layout_name(e) == {"dense": "dense", "nbr": "nbr3", "pairs": "pairs3", "block": "block"}[form]
+    assert layout_name(e) == {"dense": "dense", "nbr": "nbr3", "pairs": "pairs3", "block": "block",
+                              "kernel_list": "nbr3"}[form]
 
 
 @pytest.mark.parametrize("form", ["dense", "nbr", "block"])
@@ -168,6 +172,20 @@ def test_dispatch_runs_the_named_form(module, form):
                         else mod.pairs(h2, v2, x2, h, v, x, e.idx, e.valid, anchor_is_src=False))
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def test_kernel_list_runs_the_list_mode(monkeypatch):
+    """EGNNEdge runs a KernelList (the dynamics' kernel route) in its
+    `nbr_kernel` form, whatever the device and autograd say, and a NbrList
+    of the same tensors in its `nbr` form: the form follows the type alone."""
+    mod = _egnn()
+    e, _ = _forms()["kernel_list"]
+    calls = []
+    monkeypatch.setattr(mod, "nbr_kernel", lambda *a: calls.append("list") or "list")
+    monkeypatch.setattr(mod, "nbr", lambda *a: calls.append("nbr") or "nbr")
+    assert _egnn_call(mod, e) == "list"
+    assert _egnn_call(mod, NbrList(*e)) == "nbr"
+    assert calls == ["list", "nbr"]
 
 
 # named_parameters() of configs/<name>.yml at 2 layers of width 16 (6 keypoints

@@ -1,21 +1,24 @@
 """The route of the EGNN dynamics' kk edges and the serving layer's count of
 a kk neighbor list (kpdiff_tpu_torch/models/dynamics_egnn.py, serve.py):
 which form of its kk module each conv layer calls (edge_kk's `nbr` form
-over the neighbor list, or its `dense` form over the block layout's
-windows, a dense grid or a neighbor list's dense mask), the serving counter
-serve.chunks_kk_<layout>,
+over the neighbor list, its `nbr_kernel` form, the kernel's list mode over
+the same list, or its `dense` form over the block layout's windows or a
+dense grid), the serving counter serve.chunks_kk_<layout>,
 and serve.kk_nbr_slots and serve.kk_nbr_edges, which count, for each chunk
 whose kk is a neighbor list, the slots the list computes and the valid
 edges among them, each times the chain's steps.
 
-Where the edge kernel runs and nothing records autograd, a neighbor-list kk
-goes to edge_kk as its dense (B, K, K) mask (`NbrList.adjacency`);
-elsewhere it stays the list. The cases here check the mask against the rr
-radius graph and the list's edge count, one dynamics call on either route,
-and the counters dynamics.kk_route_kernel / dynamics.kk_route_list. The
-CPU cases make the dynamics see a kernel device by patching its
-`kernel_device`; `egnn_edge_dense` then runs its plain version. The case
-marked `card` runs the kernel at the all-atom cell's shapes and skips
+Where the edge kernel runs and nothing records autograd, the dynamics
+hands a neighbor-list kk to edge_kk as a `KernelList`, which runs its
+`nbr_kernel` form (`egnn_edge_list`); elsewhere as a `NbrList`, run by
+`nbr`. The
+cases here check the list's mask (`NbrList.adjacency`, which the list
+entry's plain version runs) against the rr radius graph and the list's
+edge count, one dynamics call on either route, and the counters
+dynamics.kk_route_kernel / dynamics.kk_route_list. The CPU cases make the
+dynamics see a kernel device by patching its `kernel_device`;
+`egnn_edge_dense` and `egnn_edge_list` then run their plain versions. The
+case marked `card` runs the kernel at the all-atom cell's shapes and skips
 without a card.
 
 `egnn_all_atom` (a fixed encoder: the pocket atoms are the keypoints, kk
@@ -40,12 +43,12 @@ from kpdiff_tpu_torch.data.padding import pad_item, to_complex
 from kpdiff_tpu_torch.models import dynamics_egnn
 from kpdiff_tpu_torch.models.egnn import EGNNEdge
 from kpdiff_tpu_torch.ops.cuda import egnn_edge
-from kpdiff_tpu_torch.ops.edge_sets import Blocks, NbrList
+from kpdiff_tpu_torch.ops.edge_sets import Blocks, KernelList, NbrList
 from kpdiff_tpu_torch.ops.neighbors import dense_radius_adjacency, radius_neighbor_list
 from kpdiff_tpu_torch.utils import profiling
 
 ROOT = Path(__file__).resolve().parents[1]
-ROUTES = ("dense", "nbr", "block")
+ROUTES = ("dense", "nbr", "block", "list")
 COUNTERS = ("dynamics.kk_route_kernel", "dynamics.kk_route_list")
 N_LAYERS = 2
 N_REC = 64
@@ -109,14 +112,16 @@ def _complex(cfg, pocket, b: int = 2):
 
 class KKCalls:
     """Calls of the forms of every conv layer's edge_kk by route: `nbr` is
-    the neighbor list; `dense` takes the block layout's windows (3 * tile
-    sources to tile destinations) or a dense square grid."""
+    the neighbor list, `list` the kernel's list mode over it (`nbr_kernel`);
+    `dense` takes the block layout's windows (3 * tile sources to tile
+    destinations) or a dense square grid."""
 
     def __init__(self, model):
         self.calls = dict.fromkeys(ROUTES, 0)
         for name, mod in model.dynamics.named_modules():
             if name.rsplit(".", 1)[-1] == "edge_kk":
                 mod.nbr = self._counted(mod.nbr, lambda adj: "nbr")
+                mod.nbr_kernel = self._counted(mod.nbr_kernel, lambda adj: "list")
                 mod.dense = self._counted(mod.dense, lambda adj: "dense" if adj.shape[-2] == adj.shape[-1]
                                           else "block")
 
@@ -288,20 +293,26 @@ def _dynamics_call(model, enc, kk, grad: bool = False):
                                      enc.kp_mask, torch.full((b,), 0.5), kk)
 
 
+def fake_kernel_device(monkeypatch):
+    """The dynamics sees a kernel device on CPU tensors: it alone decides the
+    route, and EGNNEdge follows the form it hands in."""
+    monkeypatch.setattr(dynamics_egnn, "kernel_device", lambda device: True)
+
+
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", BF16_REL)], ids=["f32", "bf16"])
 def test_mask_route_matches_the_list_route(monkeypatch, dtype, tol):
     """One EGNNDynamics call (update_kp_feat, compact_kk's list) on the
-    kernel's route (kernel device patched in: edge_kk over the mask, the
-    kernel's plain version) against the same call on the list route (nbr),
+    kernel's route (kernel device patched in: edge_kk's list form, the list
+    entry's plain version) against the same call on the list route (nbr),
     within 1e-4 of scale in f32 and 2e-2 in bf16."""
     model, enc, kk = _all_atom_list(dtype=dtype)
     calls = KKCalls(model)
     want = _dynamics_call(model, enc, kk)
     assert calls.only("nbr", N_LAYERS), calls.calls
-    monkeypatch.setattr(dynamics_egnn, "kernel_device", lambda device: True)
+    fake_kernel_device(monkeypatch)
     calls = KKCalls(model)
     got = _dynamics_call(model, enc, kk)
-    assert calls.only("dense", N_LAYERS), calls.calls
+    assert calls.only("list", N_LAYERS), calls.calls
     for g_, w_, part in zip(got, want, ("eps_h", "eps_x")):
         assert torch.isfinite(g_).all()
         err = rel_max(g_, w_)
@@ -320,7 +331,7 @@ def test_kk_route_counters(tracer, monkeypatch, case):
     counts on neither."""
     model, enc, kk = _all_atom_list()
     if case.startswith("kernel"):
-        monkeypatch.setattr(dynamics_egnn, "kernel_device", lambda device: True)
+        fake_kernel_device(monkeypatch)
     if case == "dense_kk":
         kk = dense_radius_adjacency(enc.kp_x, enc.kp_mask, enc.kp_x, enc.kp_mask, RR, exclude_self=True)
     _dynamics_call(model, enc, kk, grad=case == "kernel_autograd")
@@ -329,16 +340,14 @@ def test_kk_route_counters(tracer, monkeypatch, case):
     assert _counters(tracer) == dict(zip(COUNTERS, want))
 
 
-@pytest.mark.card
-def test_all_atom_shapes_on_the_card(card):
-    """The kernel route at the all-atom cell's shapes (B=32, K=384, the rr
-    list of molgen pockets at cap 24, width 257, bf16): edge_kk over the
-    list's mask against its `nbr` form over the list in f32 on the same parameters,
-    within 2e-2 of scale; two launches on the same inputs bitwise equal."""
+def cell_pockets(card, seed: int = 20231122):
+    """The all-atom cell's shapes on the card: B=32 molgen pockets of
+    K=384 slots (13-32 residues of four atoms), their positions, mask and
+    rr radius graph as a neighbor list at cap 24, nearest first."""
     from portbench.traffic.molgen import complex_of_size
 
-    b, k, h, cap = 32, 384, 257, 24
-    rng = np.random.default_rng(20231122)
+    b, k, cap = 32, 384, 24
+    rng = np.random.default_rng(seed)
     x = torch.zeros(b, k, 3)
     mask = torch.zeros(b, k, dtype=torch.bool)
     for i in range(b):
@@ -348,19 +357,33 @@ def test_all_atom_shapes_on_the_card(card):
     adj = dense_radius_adjacency(x, mask, x, mask, RR, exclude_self=True)
     assert int(adj.sum(1).max()) <= cap
     idx, valid = radius_neighbor_list(x, mask, x, mask, RR, cap, exclude_self=True)
-    kk_mask = NbrList(idx, valid).adjacency(k)
-    assert torch.equal(kk_mask, adj)
+    assert torch.equal(NbrList(idx, valid).adjacency(k), adj)
+    return x, mask, adj, NbrList(idx, valid)
+
+
+@pytest.mark.card
+def test_all_atom_shapes_on_the_card(card):
+    """The kernel route at the all-atom cell's shapes (B=32, K=384, the rr
+    list of molgen pockets at cap 24, width 257, bf16): edge_kk over the
+    list, handed in as the dynamics' kernel route hands it (a KernelList),
+    through the kernel's list mode against its `nbr` form over the list
+    in f32 on the same parameters, within 2e-2 of scale; two launches on the
+    same inputs bitwise equal, each counted as a list-mode launch."""
+    h = 257
+    x, mask, _, kk = cell_pockets(card)
+    b, k = mask.shape
     g = torch.Generator(device=card).manual_seed(3)
     hs = torch.randn(b, k, h, generator=g, device=card) * mask[..., None]
     mod = EGNNEdge(h, h, torch.Generator().manual_seed(4), use_tanh=True, dtype="bfloat16").to(card)
     ref = EGNNEdge(h, h, torch.Generator(), use_tanh=True, dtype="float32").to(card)
     ref.load_state_dict(mod.state_dict())
     with torch.no_grad():
-        want = ref.nbr(hs, hs, x, x, idx, valid)
-        before = egnn_edge.launches
-        got, again = mod(hs, hs, x, x, kk_mask), mod(hs, hs, x, x, kk_mask)
+        want = ref.nbr(hs, hs, x, x, kk.idx, kk.valid)
+        before, list_before = egnn_edge.launches, egnn_edge.list_launches
+        on_route = KernelList(kk.idx.to(torch.int32), kk.valid)  # as the dynamics hands it on the kernel's route
+        got, again = mod(hs, hs, x, x, on_route), mod(hs, hs, x, x, on_route)
     torch.cuda.synchronize()
-    assert egnn_edge.launches == before + 2
+    assert egnn_edge.launches == before + 2 and egnn_edge.list_launches == list_before + 2
     for g_, a_, w_, part in zip(got, again, want, ("agg_h", "agg_x")):
         assert torch.equal(g_, a_), f"{part}: two launches differ"
         err = rel_max(g_, w_)

@@ -5,8 +5,9 @@ gloo ranks, against the port's unsharded run and kpdiff_tpu's sample.
 sharded sample runs on 2 and 4 CPU ranks (one spawn for each, every case
 inside it) for dense kk (egnn_40kp, K = 40), the fixed encoder's neighbor
 list (egnn_ca, padding.n_rec 64; also on the kernel's route, the dynamics
-made to see a kernel device: each rank's (B, K, K/n) mask of the list
-through the kernel's plain version), dense radius kl/lk (kl_k 0) and GVP
+made to see a kernel device: each rank's (B, K/n, cap) list of the
+gathered rows through edge_kk's list form, the list entry's plain
+version, every layer of it counted), dense radius kl/lk (kl_k 0) and GVP
 (10 keypoints: padded to 12 on 4 ranks), at 2 layers and narrow widths,
 f32, on injected noise; each must equal both references within
 tests/test_kp_sharding.py::_assert_close's rel 2e-4 of the scale + 1e-3.
@@ -22,6 +23,7 @@ import torch
 
 from kpdiff_tpu_torch.config import PaddingConfig, load_config, model_from_config, resolve_feature_sizes
 from kpdiff_tpu_torch.models import dynamics_egnn
+from kpdiff_tpu_torch.models.egnn import EGNNEdge
 from kpdiff_tpu_torch.models.complex import synthetic_batch
 from kpdiff_tpu_torch.ops.edge_sets import Blocks, NbrList
 from kpdiff_tpu_torch.parallel import distributed as pdist
@@ -81,12 +83,20 @@ def case_inputs(cfg, seed=0):
 def _rank_sample(rank, cases, out_dir):
     n = pdist.world_size()
     mesh = make_mesh(n, ("model",), device="cpu")
-    real_device = dynamics_egnn.kernel_device
+    real_device, real_list_form = dynamics_egnn.kernel_device, EGNNEdge.nbr_kernel
+    list_calls = []
+
+    def list_form(mod, h_src, h_dst, x_src, x_dst, edges):  # the list mode's form, its sources counted
+        list_calls.append(int(h_src.shape[1]))
+        return real_list_form(mod, h_src, h_dst, x_src, x_dst, edges)
+
+    EGNNEdge.nbr_kernel = list_form
     for case, (cfg, enc, kk, noise) in cases.items():
         tm = model_from_config(cfg, device="cpu", seed=1)
         enc_s, kk_s, shard = shard_encoded(enc, kk, mesh, axis="model")
         assert enc_s.kp_x.shape[1] == -(-enc.kp_x.shape[1] // n)
         profiling.TRACER = profiling.Tracer()
+        list_calls.clear()
         if case in KERNEL_ROUTE:
             dynamics_egnn.kernel_device = lambda device: True
         try:
@@ -95,8 +105,9 @@ def _rank_sample(rank, cases, out_dir):
             dynamics_egnn.kernel_device = real_device
         routed = profiling.snapshot()["counters"].get("dynamics.kk_route_kernel", 0)
         if rank == 0:
-            np.savez(Path(out_dir) / f"{case}_{n}.npz", kk_route_kernel=routed,
-                     **{k: out[k].numpy() for k in ("lig_x", "lig_h", "kp_x")})
+            np.savez(Path(out_dir) / f"{case}_{n}.npz", kk_route_kernel=routed, list_calls=len(list_calls),
+                     list_sources=sorted(set(list_calls)), **{k: out[k].numpy() for k in ("lig_x", "lig_h", "kp_x")})
+    EGNNEdge.nbr_kernel = real_list_form
 
 
 def _assert_close(got, want, rel=2e-4, msg=""):
@@ -147,6 +158,10 @@ def test_kp_sharded_sample_matches_unsharded_and_jax(sharded, case, n):
     elif case != "gvp":
         assert torch.is_tensor(w["kk"]) and w["kk"].shape[1] == 40
     assert (int(g["kk_route_kernel"]) > 0) == (case in KERNEL_ROUTE)
+    # the kernel route reaches edge_kk's list mode once a layer, over every keypoint as a source
+    assert int(g["list_calls"]) == int(g["kk_route_kernel"])
+    if case in KERNEL_ROUTE:
+        assert list(g["list_sources"]) == [w["port"]["kp_x"].shape[1] + (-w["port"]["kp_x"].shape[1]) % n]
     for k in ("lig_x", "lig_h"):
         assert np.isfinite(g[k]).all()
         _assert_close(g[k], w["port"][k], msg=f"{case} n={n} {k} vs the port unsharded")

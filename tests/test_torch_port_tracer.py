@@ -88,6 +88,7 @@ def test_snapshot_reads_the_timers_and_the_existing_counters(tracer, monkeypatch
 
     monkeypatch.setattr(egnn_edge, "launches", 7)
     monkeypatch.setattr(egnn_edge, "captured", 3)
+    monkeypatch.setattr(egnn_edge, "list_launches", 2)
     runner = ChainGraphs(capture=host_capture)
     state = {"lig_x": torch.zeros(2, 3), "lig_h": torch.zeros(2, 1), "kp_x": torch.zeros(2, 3)}
     runner.run(state, lambda s: s["lig_x"].add_(1.0), 4, key=(), params_key=None)
@@ -101,6 +102,7 @@ def test_snapshot_reads_the_timers_and_the_existing_counters(tracer, monkeypatch
     snap = profiling.snapshot()
     counters, chain = snap["counters"], snap["timers"]["chain"]
     assert counters["egnn_edge.launches"] == 7 and counters["egnn_edge.captured"] == 3
+    assert counters["egnn_edge.list_launches"] == 2
     assert counters["chain.live_replays"] == 3 and counters["chain.captures_recorded"] == 1
     assert counters["serve.rows_run"] == 5 and snap["spans"]["chain.replays"]["n"] == 1
     assert snap["spans"]["chain.capture"]["n"] == 1  # host_capture: not armed, no timers
