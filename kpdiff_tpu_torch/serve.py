@@ -28,8 +28,10 @@ device), serve.decode and serve.build; `last_request`'s seconds are those spans'
 slot atom-steps (rows x bucket x chain steps), chunks by kk layout, kk cap
 grows, a kk neighbor list's slots (rows x keypoints x cap x chain steps) and
 its valid edges among them (x chain steps; summed on the device and read
-after the readback's sync, so a dense kk adds no sync), ligands decoded and
-built.
+after the readback's sync, so a dense kk adds no sync), keypoint slots
+(rows x keypoint slots x chain steps) and the valid keypoints among them
+(the chunk's kp_mask summed on the device, read after the same sync, x
+chain steps), ligands decoded and built.
 
 `kp_shard_devices=n > 1` splits every chunk's keypoints over n devices, one
 rank each (parallel/kp_shard.py): rank 0 holds the requests and the front
@@ -240,9 +242,10 @@ class KeypointSampler:
     @torch.no_grad()
     def _run(self, cpx, init_com):
         """Encode, compact kk and sample under no_grad, so that every dense
-        edge takes the CUDA kernel. Returns the outputs, the kk layout and,
-        for a kk neighbor list, (its slots, its valid edges summed on the
-        device), else None."""
+        edge takes the CUDA kernel. Returns the outputs, the kk layout,
+        for a kk neighbor list (its slots, its valid edges summed on the
+        device), else None, and (the keypoint slots, the valid keypoints
+        summed on the device)."""
         with profiling.span("serve.encode"):
             enc, kk = self.model.encode(cpx)
         self.last_keypoints = (enc.kp_x[0], enc.kp_mask[0])  # the pocket's keypoints, for keypoints.xyz
@@ -259,7 +262,8 @@ class KeypointSampler:
             else:
                 self._bcast(_to_device((enc, kk, init_com), "cpu"))
                 out = self._sample_sharded(enc, kk, init_com)
-        return out, layout_name(kk), (kk.valid.numel(), torch.sum(kk.valid)) if cap else None
+        kp = (enc.kp_mask.numel(), torch.sum(enc.kp_mask))
+        return out, layout_name(kk), (kk.valid.numel(), torch.sum(kk.valid)) if cap else None, kp
 
     # ------------------------------------------------------------------ API
 
@@ -343,7 +347,7 @@ class KeypointSampler:
                         com = torch.as_tensor(np.broadcast_to(np.asarray(init_com, np.float32),
                                                               (self.batch_size, 3)).copy(), device=self.device)
                 with profiling.span("serve.sample") as sample:  # encode, compact_kk and chain
-                    out, layout, kk_list = self._run(cpx, com)
+                    out, layout, kk_list, kp = self._run(cpx, com)
                 with profiling.span("serve.readback") as readback:
                     self._sync()
                 with profiling.span("serve.decode") as decode:
@@ -366,6 +370,8 @@ class KeypointSampler:
                 if kk_list is not None:  # read after the readback's sync
                     profiling.count("serve.kk_nbr_slots", kk_list[0] * chain_steps)
                     profiling.count("serve.kk_nbr_edges", int(kk_list[1]) * chain_steps)
+                profiling.count("serve.kp_slot_steps", kp[0] * chain_steps)
+                profiling.count("serve.kp_atom_steps", int(kp[1]) * chain_steps)
                 done += bs
             profiling.count("serve.ligands_built", len(mols))
             self.last_request = stats
