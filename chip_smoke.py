@@ -17,6 +17,13 @@ Phases, each timed on its own line; any failure raises (non-zero exit):
      B*6 rows) and at a data-parallel rank's ll32 (B=8), bf16 and f32, with
      times. Every measured row is launched twice on the same inputs and the
      two outputs must be bitwise equal;
+  3b. gvp_message: nvcc compiles kpdiff_tpu_torch/csrc/gvp_message.cu; the
+     GVP message kernel against GVPEdgeMessages.nbr (bf16, the same module's
+     plain chain) on a tiny list with empty rows, the all-atom cell's kk
+     (32 molgen pockets of 384 slots, cap 24, mean), its lk and gvp_40kp's
+     lk (each keypoint's 7 nearest ligand atoms; B=32, K=384, mean; B=128,
+     K=40, sum): within 2e-2 of scale, two launches bitwise equal, device
+     ms beside the node projection's, the plain path's and the bound;
   4. slice: configs/egnn_40kp.yml at full width and depth, batch 128, ligand
      buckets 16/32/48: encode -> compact_kk -> 250-step strided sampling
      through the kernel, replayed from the reverse step's captured CUDA
@@ -201,9 +208,9 @@ from kpdiff_tpu_torch.models.complex import synthetic_batch, synthetic_complex_n
 from kpdiff_tpu_torch.models.chain_graph import STATE, clone_tree, copy_tree
 from kpdiff_tpu_torch.models.diffusion import KeypointDiffusion
 from kpdiff_tpu_torch.models.size_dist import LigandSizeDistribution, save_dataset_histogram
-from kpdiff_tpu_torch.ops.cuda import egnn_edge
-from kpdiff_tpu_torch.ops.edge_sets import NbrList, layout_name
-from kpdiff_tpu_torch.ops.neighbors import dense_radius_adjacency, radius_neighbor_list
+from kpdiff_tpu_torch.ops.cuda import egnn_edge, gvp_message
+from kpdiff_tpu_torch.ops.edge_sets import KernelList, NbrList, layout_name, list_cap
+from kpdiff_tpu_torch.ops.neighbors import dense_radius_adjacency, knn_indices, radius_neighbor_list
 from kpdiff_tpu_torch.ops.spatial import block_radius_adjacency, choose_tile, spatial_sort_permutation
 from kpdiff_tpu_torch.parallel import distributed as pdist
 from kpdiff_tpu_torch.parallel.kp_shard import shard_encoded
@@ -246,6 +253,11 @@ FAMILIES = ("egnn_20kp", "egnn_40kp_fast", "egnn_ca", "egnn_all_atom", "gvp_20kp
 FAMILY_BATCH, FAMILY_K, FAMILY_TRAIN_STEPS, FAMILY_OWN_KK_STEPS = 32, 50, 5, 5
 OWN_KK = ("egnn_ca", "egnn_all_atom")  # fixed-encoder EGNN families whose own kk (dense 128 x 128, blocks) feeds the kernel
 AA_CELL_KK = (32, 384, 24, 3.5, 257)  # the all-atom cell's kk in the list mode: B, K, cap, rr radius (A), width
+# the GVP message kernel's work (models/gvp.py's chain at S 256, V 16): multiply-adds an edge (GVP0's x_unit map,
+# Wu0, rbf and |Vh| rows, gates; GVP1 and GVP2's Wh, Wu, [f, |Vh|] rows and gates) and a source node (P and Q)
+GVP_EDGE_FLOPS = 2 * (17 * 3 + 17 * 16 * 3 + 16 * 256 + 17 * 256 + 256 * 16
+                      + 2 * (2 * 16 * 16 * 3 + 272 * 256 + 256 * 16))
+GVP_NODE_FLOPS = 2 * (256 * 256 + 16 * 17 * 3)
 GVP_PARAMS = "artifacts/gvp_40kp_trained_params.npz"
 GVP_QUALITY_GATES = dict(validity=(">=", 0.95), connectivity=(">=", 0.82), atom_type_kl=("<=", 0.03))
 # phase 10: synthetic BindingMOAD splits, train CLI steps and sampling; the upstream graph options' chains
@@ -375,6 +387,116 @@ def measure(args, cd, label, iters=20):
           f"library_device_ms={lib_d if lib_d is None else round(lib_d, 4)} bound_ms={b_ms:.4f} ({b_by}) "
           f"pairs={pairs} max_rel_err={rel:.3e} max_abs_err={ab:.3e}", flush=True)
     return row
+
+
+def gvp_message_cases(seed, dev):
+    """(label, agg, lk, h_src, v_src, x_src, x_dst, idx, valid) of the GVP
+    message kernel's check: a tiny list with empty rows; the all-atom cell's
+    kk (molgen pockets in K slots, their radius graph at cap 24, AA_CELL_KK);
+    the all-atom cell's lk and gvp_40kp's lk (each keypoint's 7 nearest
+    ligand atoms, molgen ligands beside the pockets; lk True); node features
+    seeded."""
+    from portbench.traffic.molgen import complex_of_size
+
+    rng = np.random.default_rng(seed + 29)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def feats(b, n):
+        return (torch.randn(b, n, 256, generator=gen).to(dev),
+                (0.5 * torch.randn(b, n, 16, 3, generator=gen)).to(dev))
+
+    def pockets(b, k, nl):
+        xk, mk = torch.zeros(b, k, 3), torch.zeros(b, k, dtype=torch.bool)
+        xl, ml = torch.zeros(b, nl, 3), torch.zeros(b, nl, dtype=torch.bool)
+        for i in range(b):
+            c = complex_of_size(rng, int(rng.integers(13, nl + 1)), ["C", "N", "O", "S"], 4)
+            pos = c["rec_pos"][:k]
+            xk[i, :len(pos)], mk[i, :len(pos)] = torch.from_numpy(pos), True
+            lig = c["lig_pos"]
+            xl[i, :len(lig)], ml[i, :len(lig)] = torch.from_numpy(lig), True
+        return xk.to(dev), mk.to(dev), xl.to(dev), ml.to(dev)
+
+    cases = []
+    b, ns, nd, cap = 2, 11, 9, 7
+    idx = torch.randint(0, ns, (b, nd, cap), generator=gen)
+    valid = torch.rand(b, nd, cap, generator=gen) < 0.5
+    valid[0, 2], valid[1] = False, False  # an empty row, and an empty batch row
+    x_s, x_d = 3 * torch.randn(b, ns, 3, generator=gen), 3 * torch.randn(b, nd, 3, generator=gen)
+    for agg in ("sum", "mean"):
+        cases.append((f"tiny_b2_cap7_{agg}", agg, False, *feats(b, ns), x_s.to(dev), x_d.to(dev), idx.to(dev),
+                      valid.to(dev)))
+    b, k, cap, rr, _ = AA_CELL_KK
+    xk, mk, xl, ml = pockets(b, k, 32)
+    idx, valid = radius_neighbor_list(xk, mk, xk, mk, rr, cap, exclude_self=True)
+    cases.append((f"aa_kk_b{b}_k{k}_cap{cap}", "mean", False, *feats(b, k), xk, xk, idx, valid))
+    kl_idx, _, kl_valid = knn_indices(xl, ml, xk, mk, 7)
+    cases.append((f"aa_lk_b{b}_k{k}_cap7", "mean", True, *feats(b, 32), xl, xk, kl_idx, kl_valid & mk[:, :, None]))
+    xk, mk, xl, ml = pockets(BATCH, 40, 32)
+    kl_idx, _, kl_valid = knn_indices(xl, ml, xk, mk, 7)
+    cases.append((f"gvp40kp_lk_b{BATCH}_k40_cap7", "sum", True, *feats(BATCH, 32), xl, xk, kl_idx,
+                  kl_valid & mk[:, :, None]))
+    return cases
+
+
+def gvp_message_phase(seed, dev, iters=20):
+    """The GVP message kernel (ops/cuda/gvp_message.py) against the plain
+    path it replaces, the same module's chain in bf16 (GVPEdgeMessages.nbr
+    for a list, .pairs with anchor_is_src False for the lk pairs), on
+    gvp_message_cases: within TOL of the plain output's scale, two launches
+    bitwise equal, and the kernel's device ms (queued behind a spin kernel)
+    beside the node projection's, the plain path's and the bound (the chain's
+    FLOPs on the valid edges and the projection's on the source nodes, at the
+    bf16 tensor-core peak). Returns the rows."""
+    from kpdiff_tpu_torch.models.gvp import GVPEdgeMessages
+
+    print(f"built {gvp_message.build(verbose=True)}", flush=True)
+    rows, failures = [], []
+    for label, agg, lk, h, v, x_s, x_d, idx, valid in gvp_message_cases(seed, dev):
+        m = GVPEdgeMessages(256, 16, torch.Generator().manual_seed(seed), agg=agg, dtype="bfloat16").to(dev)
+        edges = KernelList(idx.to(torch.int32).contiguous(), valid.contiguous())
+        with torch.no_grad():
+            layers, node_w, pack = m._kernel_weights()
+            a_src = gvp_message.node_rows(h, v, node_w)
+
+            def kernel():
+                return gvp_message.gvp_message_list(a_src, x_s, x_d, layers, edges.idx, edges.valid,
+                                                    mean=agg == "mean", rbf_dmax=m.rbf_dmax, pack=pack)
+
+            nd = x_d.shape[1]  # destination features: the chain does not read them
+            h_d, v_d = h.new_zeros(h.shape[0], nd, h.shape[2]), v.new_zeros(v.shape[0], nd, *v.shape[2:])
+
+            def plain():
+                if lk:
+                    return m.pairs(h_d, v_d, x_d, h, v, x_s, idx, valid, anchor_is_src=False)
+                return m.nbr(h, v, x_s, h_d, v_d, x_d, idx, valid)
+
+            got, again = kernel(), kernel()
+            ref = plain()
+            torch.cuda.synchronize()
+            finite = all(bool(torch.isfinite(t).all()) for t in got)
+            bitwise = all(torch.equal(a, c) for a, c in zip(got, again))
+            rel = rel_err(got, ref)
+            k_ms = queued_ms(kernel, iters)
+            n_ms = queued_ms(lambda: gvp_message.node_rows(h, v, node_w), iters)
+            route_ms = queued_ms(lambda: m(h, v, x_s, h_d, v_d, x_d, edges), iters)
+            p_ms = queued_ms(plain, 3)
+        edges_n = int(valid.sum())
+        flops = edges_n * GVP_EDGE_FLOPS + h.shape[0] * h.shape[1] * GVP_NODE_FLOPS
+        b_ms = flops / H100_BF16_FLOPS * 1e3
+        row = dict(shape=label, agg=agg, plain="pairs" if lk else "nbr", edges=edges_n, slots=int(valid.numel()),
+                   max_rel_err=rel, bitwise_repeat=bitwise, finite=finite, kernel_device_ms=k_ms,
+                   node_rows_device_ms=n_ms, route_device_ms=route_ms, plain_device_ms=p_ms, bound_ms=b_ms)
+        rows.append(row)
+        print(f"gvp_message {label} ({agg}, against {row['plain']}): edges={edges_n}/{row['slots']} "
+              f"max_rel_err={rel:.3e} bitwise_repeat={bitwise} kernel_device_ms={k_ms:.4f} "
+              f"node_rows_device_ms={n_ms:.4f} route_device_ms={route_ms:.4f} plain_device_ms={p_ms:.4f} "
+              f"bound_ms={b_ms:.4f}", flush=True)
+        if not (finite and bitwise and rel <= TOL[torch.bfloat16]):
+            failures.append(label)
+    if failures:
+        raise RuntimeError(f"gvp_message: {failures} not finite, not bitwise repeatable or beyond "
+                           f"{TOL[torch.bfloat16]:.0e} of the plain path")
+    return rows
 
 
 def cell_list_args(seed, dev):
@@ -694,16 +816,31 @@ def launches_per_step(model) -> int:
     no_grad on the card: n_layers for ll, as many again for kl (the kNN
     mask, or the radius grid with kl_k 0) and, with update_kp_feat, for lk
     and for kk (dense, in blocks, or a neighbor list in the list mode); none for GVP,
-    whose messages run in plain PyTorch."""
+    whose lk and kk lists take the GVP message kernel (gvp_launches_per_step)."""
     if model.gvp:
         return 0
     dyn = model.dynamics
     return dyn.n_layers * (2 + 2 * int(dyn.update_kp_feat))
 
 
+def gvp_launches_per_step(model, kk, kp_shard=None) -> int:
+    """GVP message kernel launches of one reverse step under no_grad on the
+    card: with update_kp, in each conv but the last one for the lk pairs
+    (kl_k > 0) and one for a kk neighbor list, unsharded, when the message
+    chains are in the kernel's configuration (bf16, S 256, V 16); none for
+    EGNN, a dense or block kk, or the kl direction."""
+    if not model.gvp or kp_shard is not None:
+        return 0
+    dyn = model.dynamics
+    if not dyn.update_kp or not all(m.kernel_ok for m in (dyn.conv0.message_lk, dyn.conv0.message_kk)):
+        return 0
+    return (dyn.n_convs - 1) * (int(dyn.kl_k > 0) + int(list_cap(kk) > 0))
+
+
 class ChainLog:
     """Counts the kernel launches a path must make: every reverse chain it
-    samples (KeypointDiffusion.sample) adds launches_per_step a step. Counts
+    samples (KeypointDiffusion.sample) adds launches_per_step edge-kernel
+    launches and gvp_launches_per_step GVP message launches a step. Counts
     launches and chains from zero when entered."""
 
     def __enter__(self):
@@ -714,30 +851,37 @@ class ChainLog:
             steps = kw.get("sample_steps") or 0
             n = steps if 0 < steps < model.cfg.n_timesteps else model.cfg.n_timesteps
             log.append(dict(steps=n, kk=layout_name(kk), per_step=launches_per_step(model),
+                            gvp_per_step=gvp_launches_per_step(model, kk, kw.get("kp_shard")),
                             batch=int(cpx.lig_x.shape[0]), bucket=int(cpx.lig_x.shape[1])))
             return real(model, cpx, kk, *a, **kw)
 
         KeypointDiffusion.sample = logged
         sync()
         egnn_edge.launches = 0
+        gvp_message.launches = 0
         return self
 
     def __exit__(self, *exc):
         sync()
         KeypointDiffusion.sample = self.real
-        self.launches = egnn_edge.launches
+        self.launches, self.gvp_launches = egnn_edge.launches, gvp_message.launches
         self.steps = sum(c["steps"] for c in self.chains)
         self.want = sum(c["steps"] * c["per_step"] for c in self.chains)
+        self.gvp_want = sum(c["steps"] * c["gvp_per_step"] for c in self.chains)
         self.layouts = sorted({c["kk"] for c in self.chains})
 
     def check(self, label):
         per_step = self.launches / max(self.steps, 1)
+        gvp_per_step = self.gvp_launches / max(self.steps, 1)
         print(f"  {label}: {len(self.chains)} chains, {self.steps} reverse steps, kk {self.layouts}, "
-              f"{self.launches} kernel launches ({per_step:g} a step; expected {self.want})", flush=True)
-        if not self.chains or self.launches != self.want:
-            raise RuntimeError(f"{label}: {self.launches} kernel launches over {self.chains}, expected {self.want}")
+              f"{self.launches} kernel launches ({per_step:g} a step; expected {self.want}), "
+              f"{self.gvp_launches} gvp_message launches ({gvp_per_step:g} a step; expected {self.gvp_want})",
+              flush=True)
+        if not self.chains or self.launches != self.want or self.gvp_launches != self.gvp_want:
+            raise RuntimeError(f"{label}: {self.launches} kernel and {self.gvp_launches} gvp_message launches over "
+                               f"{self.chains}, expected {self.want} and {self.gvp_want}")
         return dict(launches=self.launches, steps=self.steps, chains=len(self.chains), kk=self.layouts,
-                    launches_per_step=per_step)
+                    launches_per_step=per_step, gvp_launches=self.gvp_launches, gvp_launches_per_step=gvp_per_step)
 
 
 def synthetic_complex_lines(rng, lig_elements, n_lig=24, n_res=60, min_dist=3.5, extent=12.0):
@@ -1023,7 +1167,8 @@ def family_phase(name, seed, dev, data_cache, kernel_rows):
     the card against the CPU (f32, dropout 0); FAMILY_TRAIN_STEPS optimizer
     steps at batch FAMILY_BATCH with the config's dropout, remat and
     grad_accum. Appends the kernel's first launch at each new shape to
-    `kernel_rows` (inputs, dtype). Returns the record and the launches by path."""
+    `kernel_rows` (inputs, dtype). Returns the record and each path's
+    ChainLog.check record."""
     t_fam = time.perf_counter()
     cfg = load_config(f"configs/{name}.yml")
     pad = PaddingConfig.from_config(cfg)
@@ -1073,6 +1218,9 @@ def family_phase(name, seed, dev, data_cache, kernel_rows):
         if tuple(out[k].shape) != shape or not torch.isfinite(out[k]).all():
             raise RuntimeError(f"{name}: {k} has shape {tuple(out[k].shape)} or is not finite")
     paths[f"family_{name}"] = log.check(f"{name} sample (kk {layout_name(own_kk)} -> {layout_name(kk)})")
+    if model.gvp and dev.type == "cuda" and not paths[f"family_{name}"]["gvp_launches"]:
+        # every GVP config is in the message kernel's configuration
+        raise RuntimeError(f"{name}: the GVP message kernel never ran on its lk pairs or kk list")
     rec.update(sample=dict(kk_encoder=layout_name(own_kk), kk_sample=layout_name(kk), chain_s=chain_s,
                            ms_per_step=chain_s / FAMILY_K * 1e3, s_per_ligand=chain_s / FAMILY_BATCH,
                            peak_memory_bytes=torch.cuda.max_memory_allocated(), **paths[f"family_{name}"]))
@@ -1175,7 +1323,7 @@ def family_phase(name, seed, dev, data_cache, kernel_rows):
           f"phase {rec['seconds']:.3f} s", flush=True)
     del model, state
     torch.cuda.empty_cache()
-    return rec, {k: v["launches"] for k, v in paths.items()}
+    return rec, paths
 
 
 def quality_phase(model, cfg, train_ds, test_ds, seed, record_file="STRIDED_QUALITY.json", gates=QUALITY_GATES):
@@ -2399,6 +2547,11 @@ def main():
         del base
     phase("kernel", t0)
 
+    # ---- 3b. the GVP message kernel against GVPEdgeMessages.nbr
+    t0 = time.perf_counter()
+    gvp_rows = gvp_message_phase(args.seed, dev)
+    phase("gvp_message", t0)
+
     # ---- 4. the slice: egnn_40kp sampling at batch 128 through the kernel
     t0 = time.perf_counter()
     cfg = load_config(CONFIG)
@@ -2567,7 +2720,7 @@ def main():
     gvp_model.eval()
     gvp_quality, gvp_quality_path = quality_phase(gvp_model, gvp_cfg, q_train, q_test, args.seed,
                                                   record_file="STRIDED_QUALITY_GVP.json", gates=GVP_QUALITY_GATES)
-    family_paths["quality_gvp"] = gvp_quality_path["launches"]
+    family_paths["quality_gvp"] = gvp_quality_path
     del gvp_model
     phase("families", t0)
 
@@ -2646,9 +2799,16 @@ def main():
         "library_device_ms": head["library_device_ms"],
         "launches_by_path": dict(sample=main_launches, **{k: v["launches"] for k, v in serve_paths.items()},
                                  **train_paths, **{k: v["launches"] for k, v in front_paths.items()},
-                                 quality=quality_path["launches"], **family_paths, **ref_paths, **par_paths,
+                                 quality=quality_path["launches"],
+                                 **{k: v["launches"] for k, v in family_paths.items()}, **ref_paths, **par_paths,
                                  **graph_paths),
         "shapes": list(main_rows.values()) + family_rows + option_rows + par_rows + shape_rows,
+    }, {
+        "name": "gvp_message_list", "route": "cuda", "source": "kpdiff_tpu_torch/csrc/gvp_message.cu",
+        "replaces": "none", "reference": "kpdiff_tpu_torch/models/gvp.py::GVPEdgeMessages",
+        "launches": sum(v["gvp_launches"] for v in family_paths.values()),
+        "launches_by_path": {k: v["gvp_launches"] for k, v in family_paths.items() if v["gvp_launches"]},
+        "shapes": gvp_rows,
     }]}
     record = dict(card=card, device=torch.cuda.get_device_name(0), weights=weights, slice=slice_rows,
                   mixture_s_per_ligand=mixture, chain_step_max_rel_err=chain_step_err,

@@ -33,8 +33,10 @@ There is no fallback: a failure to capture or replay raises.
 
 Launch counting: the edge kernel's wrapper counts a call made while a
 stream captures in `egnn_edge.captured`, not in `launches` (and a list
-mode call in `list_captured` too); a graph keeps the numbers it captured
-and each replay adds them to `egnn_edge.launches` and `list_launches`.
+mode call in `list_captured` too), and the GVP message kernel's in
+`gvp_message.captured`; a graph keeps the numbers it captured and each
+replay adds them to `egnn_edge.launches`, `list_launches` and
+`gvp_message.launches`.
 
 Tracing (utils/profiling.py): every CUDA capture is armed, so that the
 step's `device_mark`s and the begin and end stamps the runner adds time its
@@ -52,7 +54,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from kpdiff_tpu_torch.ops.cuda import egnn_edge
+from kpdiff_tpu_torch.ops.cuda import egnn_edge, gvp_message
 from kpdiff_tpu_torch.utils import profiling, remake
 
 STATE = ("lig_x", "lig_h", "kp_x")
@@ -148,6 +150,7 @@ class ChainGraph:
     graph: Any = None
     launches: int = 0  # edge-kernel launches a replay makes (captured calls)
     list_launches: int = 0  # of them, the kernel's list mode
+    gvp_launches: int = 0  # GVP message kernel launches a replay makes (captured calls)
     replays: int = 0
     timers: Optional[profiling.GraphTimers] = None  # the device timers of an armed capture
 
@@ -155,6 +158,7 @@ class ChainGraph:
         self.graph.replay()
         egnn_edge.launches += self.launches
         egnn_edge.list_launches += self.list_launches
+        gvp_message.launches += self.gvp_launches
         self.replays += 1
 
 
@@ -243,6 +247,7 @@ class ChainGraphs:
 
     def _capture_step(self, entry, step):
         before, list_before, pool_before = egnn_edge.captured, egnn_edge.list_captured, self.pool_bytes()
+        gvp_before = gvp_message.captured
         with profiling.span(f"{self.name}.capture") as sp:
             if self._capture is cuda_capture:
                 entry.graph, entry.timers = self._timed_capture(entry, step)
@@ -250,6 +255,7 @@ class ChainGraphs:
                 entry.graph = self._capture(step, entry.static, entry.generator, self._pool, self._stream)
         entry.launches = egnn_edge.captured - before
         entry.list_launches = egnn_edge.list_captured - list_before
+        entry.gvp_launches = gvp_message.captured - gvp_before
         pool = self.pool_bytes()
         self.captures.append(dict(inputs=tree_shapes(entry.static),
                                   capture_s=sp.seconds, pool_bytes=pool,

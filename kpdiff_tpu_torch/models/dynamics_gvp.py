@@ -13,10 +13,19 @@ pair list (`PairList`, kl_k per keypoint) or with kl_k == 0 the dense
 radius grid on the kl cutoff and its transpose, kk the encoder's edge
 set, dense (B, K, K), a `NbrList` or the banded block layout `Blocks`
 (ops/edge_sets.py); each edge type's `GVPEdgeMessages` runs the form of
-its edge set. Every GVP runs in plain PyTorch: there is no TPU kernel on
-this path. Dropout (training only) draws its masks from a torch.Generator
-before each conv, so that `remat` (torch.utils.checkpoint per conv)
-recomputes the backward with the same masks.
+its edge set. The JAX package has no TPU kernel on this path. Where the
+message kernel runs (`on_kernel`: CUDA tensors, nothing recording autograd,
+no kp_shard, the message modules in the kernel's configuration), a kk
+neighbor list and the lk pairs (a destination-major list of ligand sources
+per keypoint) reach their message modules as `KernelList`s, which run the
+hand-written kernel (ops/cuda/gvp_message.py); everything else (training,
+the CPU, the dense and block kk, the kl direction, the kp-sharded route)
+runs in plain PyTorch. Counters dynamics.gvp_kk_route_kernel /
+gvp_kk_route_list and dynamics.gvp_lk_route_kernel / gvp_lk_route_pairs
+count the kk and lk module calls by route. Dropout (training only) draws
+its masks from a torch.Generator before each conv, so that `remat`
+(torch.utils.checkpoint per conv) recomputes the backward with the same
+masks.
 
 With `kp_shard` (parallel/kp_shard.py::ShardContext) the keypoint tensors
 are this rank's rows, as in the EGNN dynamics: kl messages into the
@@ -44,9 +53,12 @@ from kpdiff_tpu_torch.models.gvp import (
     apply_gvp_dropout,
     gvp_dropout_masks,
 )
+from kpdiff_tpu_torch.models.egnn import records_grad
 from kpdiff_tpu_torch.models.nn import LayerNorm, TorchLinear
-from kpdiff_tpu_torch.ops.edge_sets import PairList, edge_count, transpose
+from kpdiff_tpu_torch.ops.cuda.gvp_message import kernel_device
+from kpdiff_tpu_torch.ops.edge_sets import KernelList, PairList, edge_count, list_cap, transpose
 from kpdiff_tpu_torch.ops.neighbors import dense_knn_adjacency, dense_radius_adjacency, knn_indices
+from kpdiff_tpu_torch.utils import profiling
 from kpdiff_tpu_torch.utils.profiling import device_mark
 
 EDGE_SLOT = {"ll": "ll", "kl": "kl", "lk": "kl", "kk": "kk"}  # each edge type's device-timer slot
@@ -225,6 +237,16 @@ class GVPDynamics(nn.Module):
                                                 "update_kp", "upd_norm_kp") if hasattr(conv, n)]
         return mods
 
+    def on_kernel(self, kp_shard, *inputs) -> bool:
+        """Whether a kk neighbor list and the lk pairs of a call on `inputs`
+        go through the message kernel: the tensors where it runs (CUDA),
+        nothing recording autograd, no kp_shard, and the convs' lk and kk
+        message modules in its configuration (`GVPEdgeMessages.kernel_ok`)."""
+        mods = [getattr(getattr(self, f"conv{i}"), f"message_{e}") for i in range(self.n_convs) for e in ("lk", "kk")
+                if hasattr(getattr(self, f"conv{i}"), f"message_{e}")]
+        return (kernel_device(inputs[0].device) and kp_shard is None and not records_grad(self, *inputs)
+                and bool(mods) and all(m.kernel_ok for m in mods))
+
     def forward(self, lig_x, lig_h, lig_mask, kp_x, kp_h, kp_mask, t, kk_edges=None, kp_v=None,
                 dropout: bool = False, generator: Optional[torch.Generator] = None, kp_shard=None):
         """-> (eps_h, eps_x). dropout=True (the training loss) applies the
@@ -256,6 +278,18 @@ class GVPDynamics(nn.Module):
                 raise ValueError("kk_edges required when update_kp=True")
             adj["lk"] = transpose(kl)
             adj["kk"] = kk_edges
+            on_kernel = self.on_kernel(kp_shard, lig_x, lig_h, kp_x, kp_h, t, kp_v)
+            n_kp_convs = self.n_convs - 1  # the last conv has no lk or kk
+            if isinstance(kl, PairList):
+                profiling.count("dynamics.gvp_lk_route_kernel" if on_kernel else "dynamics.gvp_lk_route_pairs",
+                                n_kp_convs)
+                if on_kernel:  # lk: each keypoint's list of ligand sources, int32 once a call
+                    adj["lk"] = KernelList(kl.idx.to(torch.int32).contiguous(), kl.valid.contiguous())
+            if list_cap(kk_edges):
+                profiling.count("dynamics.gvp_kk_route_kernel" if on_kernel else "dynamics.gvp_kk_route_list",
+                                n_kp_convs)
+                if on_kernel:
+                    adj["kk"] = KernelList(kk_edges.idx.to(torch.int32).contiguous(), kk_edges.valid.contiguous())
 
         node_data = {"lig": (lig_s, lig_x, lig_v), "kp": (kp_s, kp_x, kp_v)}
         masks = {"lig": lig_mask, "kp": kp_mask}

@@ -31,7 +31,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from kpdiff_tpu_torch.models.nn import LayerNorm, TorchLinear, compute_dtype, torch_bias, torch_kernel, uniform_
-from kpdiff_tpu_torch.ops.edge_sets import Blocks, NbrList, PairList, refuse
+from kpdiff_tpu_torch.ops.cuda import gvp_message
+from kpdiff_tpu_torch.ops.edge_sets import Blocks, KernelList, NbrList, PairList, refuse
 from kpdiff_tpu_torch.ops.geometry import norm_no_nan, rbf_embed
 from kpdiff_tpu_torch.ops.neighbors import gather_rows
 
@@ -249,7 +250,8 @@ class GVPEdgeMessages(nn.Module):
     destination-major neighbor list (B, Nd, K), `pairs` over a kNN pair list
     (B, K, k) anchored at one node set. `forward` takes an edge set in any
     form of ops/edge_sets.py and runs the form it names; a `Blocks` runs
-    `dense` on its windows."""
+    `dense` on its windows, and a `KernelList` (which only the GVP dynamics
+    makes, where the message kernel runs) `nbr_kernel`."""
 
     def __init__(self, scalar_size: int, vector_size: int, gen: torch.Generator, n_message_gvps: int = 3,
                  rbf_dmax: float = 15.0, rbf_dim: int = 16, use_dst_feats: bool = False, edge_feat_size: int = 0,
@@ -265,6 +267,7 @@ class GVPEdgeMessages(nn.Module):
         self.use_dst_feats = use_dst_feats
         self.edge_feat_size = edge_feat_size
         self.agg = agg
+        self._pack = None  # (key, kernel operands) of nbr_kernel
 
     def forward(self, h_src, v_src, x_src, h_dst, v_dst, x_dst, edges, edge_feat=None, reduce=None):
         """-> (B, Nd, S), (B, Nd, V, 3) in f32 over the edge set `edges`.
@@ -272,6 +275,8 @@ class GVPEdgeMessages(nn.Module):
         `dense` (dense and pairs only)."""
         if torch.is_tensor(edges):
             return self.dense(h_src, v_src, x_src, h_dst, v_dst, x_dst, edges, edge_feat, reduce=reduce)
+        if isinstance(edges, KernelList):
+            return self.nbr_kernel(h_src, v_src, x_src, x_dst, edges)
         if isinstance(edges, NbrList):
             return self.nbr(h_src, v_src, x_src, h_dst, v_dst, x_dst, edges.idx, edges.valid, edge_feat)
         if isinstance(edges, PairList):
@@ -283,6 +288,50 @@ class GVPEdgeMessages(nn.Module):
             (hs, vs, xs), (hd, vd, xd), adj, ef = edges.grid((h_src, v_src, x_src), edge_feat)
             return edges.ungrid(*self.dense(hs, vs, xs, hd, vd, xd, adj, ef))
         refuse(edges)
+
+    @property
+    def kernel_ok(self) -> bool:
+        """Whether the chain is in the message kernel's configuration
+        (ops/cuda/gvp_message.py): three GVPs of its widths in bf16, the
+        default activations and gates, no edge or destination features."""
+        gvps = [getattr(self.message, f"gvp{i}") for i in range(self.message.n)]
+        return (self.message.n == gvp_message.N_GVPS and self.edge_feat_size == 0 and not self.use_dst_feats
+                and self.rbf_dim == gvp_message.RBF_DIM
+                and all(g.cd == torch.bfloat16 and g.v_out == gvp_message.V_WIDTH and g.vector_gating
+                        and g.feats_activation == "silu" and g.vectors_activation == "sigmoid"
+                        and g.to_feats_out.kernel.shape[1] == gvp_message.S_WIDTH for g in gvps))
+
+    def _kernel_weights(self):
+        """nbr_kernel's operands of the chain, made once and cached until a
+        parameter changes: its GVPLayers, the node matrix in the compute dtype
+        (`gvp_message.node_matrix`) and, on CUDA, the kernel's images
+        (`gvp_message.pack_weights`)."""
+        params = tuple(self.parameters())
+        key = tuple((p.data_ptr(), p._version, p.dtype) for p in params)
+        if self._pack is None or self._pack[0] != key:
+            layers = tuple(
+                gvp_message.GVPLayer(g.Wh.detach(), g.Wu.detach(), g.to_feats_out.kernel.detach(),
+                                     g.to_feats_out.bias.detach(), g.scalar_to_vector_gates.kernel.detach(),
+                                     g.scalar_to_vector_gates.bias.detach())
+                for g in (getattr(self.message, f"gvp{i}") for i in range(self.message.n)))
+            dev = layers[0].k.device
+            pack = gvp_message.pack_weights(layers, self.rbf_dmax) if gvp_message.kernel_device(dev) else None
+            self._pack = (key, (layers, gvp_message.node_matrix(layers, self.message.gvp0.cd), pack))
+        return self._pack[1]
+
+    def nbr_kernel(self, h_src, v_src, x_src, x_dst, edges: NbrList):
+        """Messages over a destination-major neighbor list through the
+        message kernel's entry `gvp_message.gvp_message_list` (the CUDA
+        kernel on CUDA tensors, its plain version on CPU tensors), forward
+        only: GVP0's per-node pieces in one product, then the chain on the
+        list's valid slots and their sum (or mean). The kernel's
+        configuration only (`kernel_ok`)."""
+        layers, node_w, pack = self._kernel_weights()
+        f32 = torch.float32
+        return gvp_message.gvp_message_list(
+            gvp_message.node_rows(h_src, v_src, node_w), x_src.to(f32).contiguous(), x_dst.to(f32).contiguous(),
+            layers, edges.idx, edges.valid, mean=self.agg == "mean", rbf_dmax=self.rbf_dmax,
+            compute_dtype=self.message.gvp0.cd, pack=pack)
 
     def _messages(self, diff, valid, h_src, v_src, h_dst, v_dst, edge_feat=None):
         """Messages of the pairs whose (source - destination) offsets are

@@ -6,8 +6,9 @@ An edge set joins source nodes to destination nodes of one batch:
   (ll, kl and lk on the kernel's route, a dense kk);
 - `NbrList(idx, valid)`: a destination-major (B, Nd, cap) list of source
   indices (kk after compact_kk or with kk_layout 'nbr', the encoders' rr);
-  `KernelList`, a NbrList that the dynamics hands to the edge kernel's
-  list mode, reads as one everywhere else;
+  `KernelList`, a NbrList that the dynamics hands to a hand-written
+  kernel (the EGNN edge kernel's list mode, the GVP message kernel), reads
+  as one everywhere else;
 - `PairList(idx, valid, anchor_is_src)`: the keypoint-anchored kNN pairs
   (B, K, k), idx into the other node set; the keypoints send (kl,
   anchor_is_src) or receive (lk, its `transpose`);
@@ -48,11 +49,12 @@ class NbrList(NamedTuple):
 
 
 class KernelList(NbrList):
-    """A NbrList on the edge kernel's route: int32 idx, both tensors
-    contiguous. Only the EGNN dynamics makes one, where it takes the kernel
-    (models/dynamics_egnn.py::EGNNDynamics.on_kernel), and EGNNEdge runs it
-    through the kernel's list mode; any other reader takes it as the NbrList
-    it is."""
+    """A NbrList on a hand-written kernel's route: int32 idx, both tensors
+    contiguous. Only the dynamics make one, where they take their kernel
+    (models/dynamics_egnn.py::EGNNDynamics.on_kernel, the edge kernel's list
+    mode in EGNNEdge; models/dynamics_gvp.py::GVPDynamics.on_kernel, the GVP
+    message kernel in GVPEdgeMessages); any other reader takes it as the
+    NbrList it is."""
 
     __slots__ = ()
 

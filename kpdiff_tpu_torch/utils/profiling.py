@@ -43,8 +43,8 @@ nodes once, from the graph itself (`cudaGraphGetNodes`), the stamps left out.
 
 `snapshot()` returns span totals, counters, device timers by runner kind
 and the counters the port keeps elsewhere (the edge kernel's launches,
-those of its list mode and captured calls, the live runners' captures and
-replays). `device_trace` writes torch.profiler's Chrome trace, spans
+those of its list mode and captured calls, the GVP message kernel's
+launches and captured calls, the live runners' captures and replays). `device_trace` writes torch.profiler's Chrome trace, spans
 included.
 """
 from __future__ import annotations
@@ -280,7 +280,7 @@ class Tracer:
     def snapshot(self) -> Dict:
         """Span totals, counters, device timers by runner kind, and the
         counters kept elsewhere; one copy of the timer buffers to the host."""
-        from kpdiff_tpu_torch.ops.cuda import egnn_edge
+        from kpdiff_tpu_torch.ops.cuda import egnn_edge, gvp_message
 
         with self._lock:
             spans = {k: {"n": v[0], "ns": v[1], "self_ns": v[2]} for k, v in self._totals.items()}
@@ -297,6 +297,8 @@ class Tracer:
         counters["egnn_edge.launches"] = egnn_edge.launches
         counters["egnn_edge.captured"] = egnn_edge.captured
         counters["egnn_edge.list_launches"] = egnn_edge.list_launches
+        counters["gvp_message.launches"] = gvp_message.launches
+        counters["gvp_message.captured"] = gvp_message.captured
         for runner in list(self._runners):
             name = runner.name
             counters[f"{name}.captures_recorded"] = counters.get(f"{name}.captures_recorded", 0) + len(runner.captures)
