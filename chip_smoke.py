@@ -18,12 +18,14 @@ Phases, each timed on its own line; any failure raises (non-zero exit):
      times. Every measured row is launched twice on the same inputs and the
      two outputs must be bitwise equal;
   3b. gvp_message: nvcc compiles kpdiff_tpu_torch/csrc/gvp_message.cu; the
-     GVP message kernel against GVPEdgeMessages.nbr (bf16, the same module's
-     plain chain) on a tiny list with empty rows, the all-atom cell's kk
-     (32 molgen pockets of 384 slots, cap 24, mean), its lk and gvp_40kp's
-     lk (each keypoint's 7 nearest ligand atoms; B=32, K=384, mean; B=128,
-     K=40, sum): within 2e-2 of scale, two launches bitwise equal, device
-     ms beside the node projection's, the plain path's and the bound;
+     GVP message kernel against GVPEdgeMessages.nbr and .pairs (bf16, the
+     same module's plain chain) on a tiny list with empty rows, the all-atom
+     cell's kk (32 molgen pockets of 384 slots, cap 24, mean), its lk and kl
+     and gvp_40kp's lk and kl (each keypoint's 7 nearest ligand atoms; kl as
+     each ligand atom's list of keypoint senders, cap K; B=32, K=384, mean;
+     B=128, K=40, sum): within 2e-2 of scale, two launches bitwise equal,
+     device ms beside the node projection's, the kl list build's, the plain
+     path's and the bound;
   4. slice: configs/egnn_40kp.yml at full width and depth, batch 128, ligand
      buckets 16/32/48: encode -> compact_kk -> 250-step strided sampling
      through the kernel, replayed from the reverse step's captured CUDA
@@ -153,7 +155,9 @@ Every sampling path is held to its kernel launch count (ChainLog): for EGNN,
 n_layers launches per reverse step for ll, as many again for kl and, with
 update_kp_feat, for lk (the kNN mask, or the radius grid with kl_k 0) and for
 kk (dense, in blocks, or the mask of compact_kk's neighbor list): 24 an
-EGNN step; none for GVP, whose messages run in plain PyTorch. Sampling replays a
+EGNN step; and GVP message kernel launches (gvp_launches_per_step): n_convs a
+step for the kl pairs, with update_kp n_convs - 1 each for the lk pairs and a
+kk neighbor list (16 an all-atom GVP step, 11 a gvp_40kp step). Sampling replays a
 captured CUDA graph of the reverse step by default: the first chain of a
 shape runs its first step eagerly (its launches counted as they are made)
 and captures the step (the wrapper counts the calls it records in
@@ -209,7 +213,8 @@ from kpdiff_tpu_torch.models.chain_graph import STATE, clone_tree, copy_tree
 from kpdiff_tpu_torch.models.diffusion import KeypointDiffusion
 from kpdiff_tpu_torch.models.size_dist import LigandSizeDistribution, save_dataset_histogram
 from kpdiff_tpu_torch.ops.cuda import egnn_edge, gvp_message
-from kpdiff_tpu_torch.ops.edge_sets import KernelList, NbrList, layout_name, list_cap
+from kpdiff_tpu_torch.ops.edge_sets import (KernelList, NbrList, PairList, dst_major, edge_count, layout_name, list_cap,
+                                            transpose)
 from kpdiff_tpu_torch.ops.neighbors import dense_radius_adjacency, knn_indices, radius_neighbor_list
 from kpdiff_tpu_torch.ops.spatial import block_radius_adjacency, choose_tile, spatial_sort_permutation
 from kpdiff_tpu_torch.parallel import distributed as pdist
@@ -272,7 +277,7 @@ PAR_STEPS, PAR_BATCH, PAR_BUCKET, PAR_K = 5, 32, 32, 50
 # bf16 rounding into parameter differences)
 PAR_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
 # phase 12: graph against eager; a graph step against the eager step on one state, relative to the state's scale
-# (bitwise expected; GVP's kNN pairs' scatter-adds sum in another order from run to run on the card)
+# (bitwise expected); two replays of gvp_40kp's graph step on one state and generator state must agree bitwise
 GRAPH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 GRAPH_PROFILE_STEPS, GVP_GRAPH_K = 10, 50
 # phase 13: graph against eager training steps on phase 6's batches; phase 11's bounds for two trainers
@@ -390,12 +395,13 @@ def measure(args, cd, label, iters=20):
 
 
 def gvp_message_cases(seed, dev):
-    """(label, agg, lk, h_src, v_src, x_src, x_dst, idx, valid) of the GVP
-    message kernel's check: a tiny list with empty rows; the all-atom cell's
-    kk (molgen pockets in K slots, their radius graph at cap 24, AA_CELL_KK);
-    the all-atom cell's lk and gvp_40kp's lk (each keypoint's 7 nearest
-    ligand atoms, molgen ligands beside the pockets; lk True); node features
-    seeded."""
+    """(label, agg, edges, h_src, v_src, x_src, x_dst) of the GVP message
+    kernel's check, `edges` the edge set the plain path takes (a NbrList, or
+    the kNN PairList, whose destination-major list the kernel takes): a tiny
+    list with empty rows; the all-atom cell's kk (molgen pockets in K slots,
+    their radius graph at cap 24, AA_CELL_KK); the all-atom cell's and
+    gvp_40kp's lk and kl (each keypoint's 7 nearest ligand atoms, molgen
+    ligands beside the pockets); node features seeded."""
     from portbench.traffic.molgen import complex_of_size
 
     rng = np.random.default_rng(seed + 29)
@@ -423,37 +429,44 @@ def gvp_message_cases(seed, dev):
     valid[0, 2], valid[1] = False, False  # an empty row, and an empty batch row
     x_s, x_d = 3 * torch.randn(b, ns, 3, generator=gen), 3 * torch.randn(b, nd, 3, generator=gen)
     for agg in ("sum", "mean"):
-        cases.append((f"tiny_b2_cap7_{agg}", agg, False, *feats(b, ns), x_s.to(dev), x_d.to(dev), idx.to(dev),
-                      valid.to(dev)))
+        cases.append((f"tiny_b2_cap7_{agg}", agg, NbrList(idx.to(dev), valid.to(dev)), *feats(b, ns), x_s.to(dev),
+                      x_d.to(dev)))
     b, k, cap, rr, _ = AA_CELL_KK
     xk, mk, xl, ml = pockets(b, k, 32)
-    idx, valid = radius_neighbor_list(xk, mk, xk, mk, rr, cap, exclude_self=True)
-    cases.append((f"aa_kk_b{b}_k{k}_cap{cap}", "mean", False, *feats(b, k), xk, xk, idx, valid))
+    cases.append((f"aa_kk_b{b}_k{k}_cap{cap}", "mean", radius_neighbor_list(xk, mk, xk, mk, rr, cap, exclude_self=True),
+                  *feats(b, k), xk, xk))
     kl_idx, _, kl_valid = knn_indices(xl, ml, xk, mk, 7)
-    cases.append((f"aa_lk_b{b}_k{k}_cap7", "mean", True, *feats(b, 32), xl, xk, kl_idx, kl_valid & mk[:, :, None]))
+    kl = PairList(kl_idx, kl_valid & mk[:, :, None])
+    cases.append((f"aa_lk_b{b}_k{k}_cap7", "mean", transpose(kl), *feats(b, 32), xl, xk))
+    cases.append((f"aa_kl_b{b}_nl32_cap{k}", "mean", kl, *feats(b, k), xk, xl))
     xk, mk, xl, ml = pockets(BATCH, 40, 32)
     kl_idx, _, kl_valid = knn_indices(xl, ml, xk, mk, 7)
-    cases.append((f"gvp40kp_lk_b{BATCH}_k40_cap7", "sum", True, *feats(BATCH, 32), xl, xk, kl_idx,
-                  kl_valid & mk[:, :, None]))
+    kl = PairList(kl_idx, kl_valid & mk[:, :, None])
+    cases.append((f"gvp40kp_lk_b{BATCH}_k40_cap7", "sum", transpose(kl), *feats(BATCH, 32), xl, xk))
+    cases.append((f"gvp40kp_kl_b{BATCH}_nl32_cap40", "sum", kl, *feats(BATCH, 40), xk, xl))
     return cases
 
 
 def gvp_message_phase(seed, dev, iters=20):
     """The GVP message kernel (ops/cuda/gvp_message.py) against the plain
     path it replaces, the same module's chain in bf16 (GVPEdgeMessages.nbr
-    for a list, .pairs with anchor_is_src False for the lk pairs), on
-    gvp_message_cases: within TOL of the plain output's scale, two launches
-    bitwise equal, and the kernel's device ms (queued behind a spin kernel)
-    beside the node projection's, the plain path's and the bound (the chain's
-    FLOPs on the valid edges and the projection's on the source nodes, at the
-    bf16 tensor-core peak). Returns the rows."""
+    for a list, .pairs for the kNN pairs, lk or kl), on gvp_message_cases:
+    within TOL of the plain output's scale, two launches bitwise equal, and
+    the kernel's device ms (queued behind a spin kernel) beside the node
+    projection's, the kl list build's (`dst_major`, the dynamics' once a
+    call), the plain path's and the bound (the chain's FLOPs on the valid
+    edges and the projection's on the source nodes, at the bf16 tensor-core
+    peak). Returns the rows."""
     from kpdiff_tpu_torch.models.gvp import GVPEdgeMessages
 
     print(f"built {gvp_message.build(verbose=True)}", flush=True)
     rows, failures = [], []
-    for label, agg, lk, h, v, x_s, x_d, idx, valid in gvp_message_cases(seed, dev):
+    for label, agg, plain_edges, h, v, x_s, x_d in gvp_message_cases(seed, dev):
         m = GVPEdgeMessages(256, 16, torch.Generator().manual_seed(seed), agg=agg, dtype="bfloat16").to(dev)
-        edges = KernelList(idx.to(torch.int32).contiguous(), valid.contiguous())
+        nd = x_d.shape[1]
+        to_list = ((lambda: KernelList.of(dst_major(plain_edges, nd))) if isinstance(plain_edges, PairList)
+                   else (lambda: KernelList.of(plain_edges)))
+        edges = to_list()
         with torch.no_grad():
             layers, node_w, pack = m._kernel_weights()
             a_src = gvp_message.node_rows(h, v, node_w)
@@ -462,13 +475,11 @@ def gvp_message_phase(seed, dev, iters=20):
                 return gvp_message.gvp_message_list(a_src, x_s, x_d, layers, edges.idx, edges.valid,
                                                     mean=agg == "mean", rbf_dmax=m.rbf_dmax, pack=pack)
 
-            nd = x_d.shape[1]  # destination features: the chain does not read them
+            # destination features: the chain does not read them
             h_d, v_d = h.new_zeros(h.shape[0], nd, h.shape[2]), v.new_zeros(v.shape[0], nd, *v.shape[2:])
 
             def plain():
-                if lk:
-                    return m.pairs(h_d, v_d, x_d, h, v, x_s, idx, valid, anchor_is_src=False)
-                return m.nbr(h, v, x_s, h_d, v_d, x_d, idx, valid)
+                return m(h, v, x_s, h_d, v_d, x_d, plain_edges)
 
             got, again = kernel(), kernel()
             ref = plain()
@@ -478,19 +489,24 @@ def gvp_message_phase(seed, dev, iters=20):
             rel = rel_err(got, ref)
             k_ms = queued_ms(kernel, iters)
             n_ms = queued_ms(lambda: gvp_message.node_rows(h, v, node_w), iters)
+            list_ms = queued_ms(to_list, iters) if isinstance(plain_edges, PairList) else None
             route_ms = queued_ms(lambda: m(h, v, x_s, h_d, v_d, x_d, edges), iters)
             p_ms = queued_ms(plain, 3)
-        edges_n = int(valid.sum())
+        edges_n = int(edges.valid.sum())
+        if edges_n != int(edge_count(plain_edges).sum()):
+            failures.append(f"{label}: {edges_n} edges in the list, {int(edge_count(plain_edges).sum())} in the pairs")
         flops = edges_n * GVP_EDGE_FLOPS + h.shape[0] * h.shape[1] * GVP_NODE_FLOPS
         b_ms = flops / H100_BF16_FLOPS * 1e3
-        row = dict(shape=label, agg=agg, plain="pairs" if lk else "nbr", edges=edges_n, slots=int(valid.numel()),
+        kind = "nbr" if isinstance(plain_edges, NbrList) else "pairs_kl" if plain_edges.anchor_is_src else "pairs_lk"
+        row = dict(shape=label, agg=agg, plain=kind, edges=edges_n, slots=int(edges.valid.numel()),
                    max_rel_err=rel, bitwise_repeat=bitwise, finite=finite, kernel_device_ms=k_ms,
-                   node_rows_device_ms=n_ms, route_device_ms=route_ms, plain_device_ms=p_ms, bound_ms=b_ms)
+                   node_rows_device_ms=n_ms, list_build_device_ms=list_ms, route_device_ms=route_ms,
+                   plain_device_ms=p_ms, bound_ms=b_ms)
         rows.append(row)
         print(f"gvp_message {label} ({agg}, against {row['plain']}): edges={edges_n}/{row['slots']} "
               f"max_rel_err={rel:.3e} bitwise_repeat={bitwise} kernel_device_ms={k_ms:.4f} "
-              f"node_rows_device_ms={n_ms:.4f} route_device_ms={route_ms:.4f} plain_device_ms={p_ms:.4f} "
-              f"bound_ms={b_ms:.4f}", flush=True)
+              f"node_rows_device_ms={n_ms:.4f} list_build_device_ms={list_ms and round(list_ms, 4)} "
+              f"route_device_ms={route_ms:.4f} plain_device_ms={p_ms:.4f} bound_ms={b_ms:.4f}", flush=True)
         if not (finite and bitwise and rel <= TOL[torch.bfloat16]):
             failures.append(label)
     if failures:
@@ -816,7 +832,7 @@ def launches_per_step(model) -> int:
     no_grad on the card: n_layers for ll, as many again for kl (the kNN
     mask, or the radius grid with kl_k 0) and, with update_kp_feat, for lk
     and for kk (dense, in blocks, or a neighbor list in the list mode); none for GVP,
-    whose lk and kk lists take the GVP message kernel (gvp_launches_per_step)."""
+    whose kNN pairs and kk lists take the GVP message kernel (gvp_launches_per_step)."""
     if model.gvp:
         return 0
     dyn = model.dynamics
@@ -825,16 +841,20 @@ def launches_per_step(model) -> int:
 
 def gvp_launches_per_step(model, kk, kp_shard=None) -> int:
     """GVP message kernel launches of one reverse step under no_grad on the
-    card: with update_kp, in each conv but the last one for the lk pairs
-    (kl_k > 0) and one for a kk neighbor list, unsharded, when the message
-    chains are in the kernel's configuration (bf16, S 256, V 16); none for
-    EGNN, a dense or block kk, or the kl direction."""
+    card, unsharded, when every message chain is in the kernel's
+    configuration (bf16, S 256, V 16): with kl_k > 0 one in every conv for
+    the kl pairs; with update_kp, in each conv but the last, one for the lk
+    pairs (kl_k > 0) and one for a kk neighbor list; none for EGNN, a dense or
+    block kk, or kl_k 0's dense grids."""
     if not model.gvp or kp_shard is not None:
         return 0
     dyn = model.dynamics
-    if not dyn.update_kp or not all(m.kernel_ok for m in (dyn.conv0.message_lk, dyn.conv0.message_kk)):
+    convs = [getattr(dyn, f"conv{i}") for i in range(dyn.n_convs)]
+    if not all(getattr(c, f"message_{e}").kernel_ok for c in convs for e in ("kl", "lk", "kk")
+               if hasattr(c, f"message_{e}")):
         return 0
-    return (dyn.n_convs - 1) * (int(dyn.kl_k > 0) + int(list_cap(kk) > 0))
+    kl = int(dyn.kl_k > 0)
+    return dyn.n_convs * kl + int(dyn.update_kp) * (dyn.n_convs - 1) * (kl + int(list_cap(kk) > 0))
 
 
 class ChainLog:
@@ -1220,7 +1240,7 @@ def family_phase(name, seed, dev, data_cache, kernel_rows):
     paths[f"family_{name}"] = log.check(f"{name} sample (kk {layout_name(own_kk)} -> {layout_name(kk)})")
     if model.gvp and dev.type == "cuda" and not paths[f"family_{name}"]["gvp_launches"]:
         # every GVP config is in the message kernel's configuration
-        raise RuntimeError(f"{name}: the GVP message kernel never ran on its lk pairs or kk list")
+        raise RuntimeError(f"{name}: the GVP message kernel never ran on its kNN pairs or kk list")
     rec.update(sample=dict(kk_encoder=layout_name(own_kk), kk_sample=layout_name(kk), chain_s=chain_s,
                            ms_per_step=chain_s / FAMILY_K * 1e3, s_per_ligand=chain_s / FAMILY_BATCH,
                            peak_memory_bytes=torch.cuda.max_memory_allocated(), **paths[f"family_{name}"]))
@@ -2050,6 +2070,28 @@ def graph_step_check(model, enc, kk, gen, steps, check_at):
     return worst, bitwise
 
 
+def graph_repeat_check(model, enc, kk, gen, at=1):
+    """Two replays of the cached graph step on the chain's state after `at`
+    eager steps, with the generator in the same state for both: the STATE
+    keys whose results differ (none where every op of the step sums in a
+    fixed order)."""
+    model.sample(enc, kk, sample_steps=2, generator=gen)  # the graph of this key (cached)
+    entry = model.chain_graphs.last
+    st, _, _ = model.start_chain(enc, kk, sample_steps=GVP_GRAPH_K, generator=gen)
+    dyn = model._sampling_dynamics()
+    for _ in range(at):
+        model.reverse_step(dyn, st, 1.0, gen)
+    g0 = gen.get_state()
+    outs = []
+    for _ in range(2):
+        gen.set_state(g0)
+        copy_tree(entry.static, st)
+        entry.replay()
+        torch.cuda.synchronize()
+        outs.append({k: entry.static[k].clone() for k in STATE})
+    return sorted(k for k in STATE if not torch.equal(outs[0][k], outs[1][k]))
+
+
 def draws_check(dev, shapes, replays=3):
     """A captured graph of torch.randn draws from a registered generator,
     replayed, against eager draws from the same generator state: bitwise."""
@@ -2202,6 +2244,13 @@ def graph_phase(params_path, seed, dev):
     ggen = torch.Generator(device=dev).manual_seed(seed + 90)
     rec["gvp_40kp"] = graph_chain_record(gvp, genc, gkk, ggen, "gvp_40kp bucket 48", GVP_GRAPH_K, BATCH,
                                          (0, 1, GVP_GRAPH_K - 1), GRAPH_TOL[gvp.cd])
+    # its kl and lk sum in the message kernel's fixed order: two seeded graph steps agree bitwise
+    differ = graph_repeat_check(gvp, genc, gkk, ggen)
+    rec["gvp_40kp"]["repeat_differs"] = differ
+    print(f"graph gvp_40kp bucket 48: two replays of the step on one state and generator state bitwise equal "
+          f"{not differ} (differing: {differ})", flush=True)
+    if differ:
+        raise RuntimeError(f"gvp_40kp: two seeded graph steps differ in {differ}")
 
     # graph chains of the other edge layouts: egnn_ca on compact_kk's list (its mask, 24 launches a
     # step, seeded weights), the flagship with kl_k 0 (24 a step)

@@ -211,7 +211,7 @@ class EGNNDynamics(nn.Module):
                 profiling.count("dynamics.kk_route_kernel" if on_kernel else "dynamics.kk_route_list",
                                 self.n_layers)
                 if on_kernel:  # the list mode's operands (int32 indices) once a call, not once a layer
-                    edges["kk"] = KernelList(kk_edges.idx.to(torch.int32).contiguous(), kk_edges.valid.contiguous())
+                    edges["kk"] = KernelList.of(kk_edges)
 
         z = {}
         if self.message_norm == 0 and self.z_semantics == "executed":

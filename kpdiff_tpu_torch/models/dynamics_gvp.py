@@ -16,13 +16,17 @@ set, dense (B, K, K), a `NbrList` or the banded block layout `Blocks`
 its edge set. The JAX package has no TPU kernel on this path. Where the
 message kernel runs (`on_kernel`: CUDA tensors, nothing recording autograd,
 no kp_shard, the message modules in the kernel's configuration), a kk
-neighbor list and the lk pairs (a destination-major list of ligand sources
-per keypoint) reach their message modules as `KernelList`s, which run the
-hand-written kernel (ops/cuda/gvp_message.py); everything else (training,
-the CPU, the dense and block kk, the kl direction, the kp-sharded route)
-runs in plain PyTorch. Counters dynamics.gvp_kk_route_kernel /
-gvp_kk_route_list and dynamics.gvp_lk_route_kernel / gvp_lk_route_pairs
-count the kk and lk module calls by route. Dropout (training only) draws
+neighbor list and both directions of the kNN pairs reach their message
+modules as `KernelList`s, which run the hand-written kernel
+(ops/cuda/gvp_message.py): lk as each keypoint's list of ligand sources,
+kl as each ligand atom's list of keypoint senders (`dst_major`, built once
+a call for every conv; its sums in keypoint order, so no scatter-add and
+one summation order from run to run). Everything else (training, the CPU,
+the dense and block kk, kl_k 0's dense grids, the kp-sharded route) runs
+in plain PyTorch. Counters dynamics.gvp_kl_route_kernel /
+gvp_kl_route_pairs, dynamics.gvp_lk_route_kernel / gvp_lk_route_pairs and
+dynamics.gvp_kk_route_kernel / gvp_kk_route_list count the kl, lk and kk
+module calls by route. Dropout (training only) draws
 its masks from a torch.Generator before each conv, so that `remat`
 (torch.utils.checkpoint per conv) recomputes the backward with the same
 masks.
@@ -56,7 +60,7 @@ from kpdiff_tpu_torch.models.gvp import (
 from kpdiff_tpu_torch.models.egnn import records_grad
 from kpdiff_tpu_torch.models.nn import LayerNorm, TorchLinear
 from kpdiff_tpu_torch.ops.cuda.gvp_message import kernel_device
-from kpdiff_tpu_torch.ops.edge_sets import KernelList, PairList, edge_count, list_cap, transpose
+from kpdiff_tpu_torch.ops.edge_sets import KernelList, PairList, dst_major, edge_count, list_cap, transpose
 from kpdiff_tpu_torch.ops.neighbors import dense_knn_adjacency, dense_radius_adjacency, knn_indices
 from kpdiff_tpu_torch.utils import profiling
 from kpdiff_tpu_torch.utils.profiling import device_mark
@@ -238,14 +242,14 @@ class GVPDynamics(nn.Module):
         return mods
 
     def on_kernel(self, kp_shard, *inputs) -> bool:
-        """Whether a kk neighbor list and the lk pairs of a call on `inputs`
+        """Whether the kNN pairs and a kk neighbor list of a call on `inputs`
         go through the message kernel: the tensors where it runs (CUDA),
-        nothing recording autograd, no kp_shard, and the convs' lk and kk
+        nothing recording autograd, no kp_shard, and the convs' kl, lk and kk
         message modules in its configuration (`GVPEdgeMessages.kernel_ok`)."""
-        mods = [getattr(getattr(self, f"conv{i}"), f"message_{e}") for i in range(self.n_convs) for e in ("lk", "kk")
-                if hasattr(getattr(self, f"conv{i}"), f"message_{e}")]
+        mods = [getattr(getattr(self, f"conv{i}"), f"message_{e}") for i in range(self.n_convs)
+                for e in ("kl", "lk", "kk") if hasattr(getattr(self, f"conv{i}"), f"message_{e}")]
         return (kernel_device(inputs[0].device) and kp_shard is None and not records_grad(self, *inputs)
-                and bool(mods) and all(m.kernel_ok for m in mods))
+                and all(m.kernel_ok for m in mods))
 
     def forward(self, lig_x, lig_h, lig_mask, kp_x, kp_h, kp_mask, t, kk_edges=None, kp_v=None,
                 dropout: bool = False, generator: Optional[torch.Generator] = None, kp_shard=None):
@@ -273,23 +277,28 @@ class GVPDynamics(nn.Module):
         else:
             kl = dense_radius_adjacency(kp_x, kp_mask, lig_x, lig_mask, self.kl_cutoff)
         adj = {"ll": ll, "kl": kl}
+        on_kernel = self.on_kernel(kp_shard, lig_x, lig_h, kp_x, kp_h, t, kp_v)
+        if isinstance(kl, PairList):
+            profiling.count("dynamics.gvp_kl_route_kernel" if on_kernel else "dynamics.gvp_kl_route_pairs",
+                            self.n_convs)
+            if on_kernel:  # kl: each ligand atom's keypoint senders, int32, once a call for every conv
+                adj["kl"] = KernelList.of(dst_major(kl, nl))
         if self.update_kp:
             if kk_edges is None:
                 raise ValueError("kk_edges required when update_kp=True")
             adj["lk"] = transpose(kl)
             adj["kk"] = kk_edges
-            on_kernel = self.on_kernel(kp_shard, lig_x, lig_h, kp_x, kp_h, t, kp_v)
             n_kp_convs = self.n_convs - 1  # the last conv has no lk or kk
             if isinstance(kl, PairList):
                 profiling.count("dynamics.gvp_lk_route_kernel" if on_kernel else "dynamics.gvp_lk_route_pairs",
                                 n_kp_convs)
-                if on_kernel:  # lk: each keypoint's list of ligand sources, int32 once a call
-                    adj["lk"] = KernelList(kl.idx.to(torch.int32).contiguous(), kl.valid.contiguous())
+                if on_kernel:  # lk: each keypoint's list of ligand sources
+                    adj["lk"] = KernelList.of(dst_major(adj["lk"], k))
             if list_cap(kk_edges):
                 profiling.count("dynamics.gvp_kk_route_kernel" if on_kernel else "dynamics.gvp_kk_route_list",
                                 n_kp_convs)
                 if on_kernel:
-                    adj["kk"] = KernelList(kk_edges.idx.to(torch.int32).contiguous(), kk_edges.valid.contiguous())
+                    adj["kk"] = KernelList.of(kk_edges)
 
         node_data = {"lig": (lig_s, lig_x, lig_v), "kp": (kp_s, kp_x, kp_v)}
         masks = {"lig": lig_mask, "kp": kp_mask}

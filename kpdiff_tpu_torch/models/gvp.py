@@ -250,8 +250,11 @@ class GVPEdgeMessages(nn.Module):
     destination-major neighbor list (B, Nd, K), `pairs` over a kNN pair list
     (B, K, k) anchored at one node set. `forward` takes an edge set in any
     form of ops/edge_sets.py and runs the form it names; a `Blocks` runs
-    `dense` on its windows, and a `KernelList` (which only the GVP dynamics
-    makes, where the message kernel runs) `nbr_kernel`."""
+    `dense` on its windows, and a `KernelList` `nbr_kernel`. Only the GVP
+    dynamics hands it a KernelList, where the message kernel runs: of a kk
+    list and of both directions of the kNN pairs (`edge_sets.dst_major`: lk each
+    keypoint's ligand sources, kl each ligand atom's keypoint senders), so
+    that sampling on the card sums no message with a scatter-add."""
 
     def __init__(self, scalar_size: int, vector_size: int, gen: torch.Generator, n_message_gvps: int = 3,
                  rbf_dmax: float = 15.0, rbf_dim: int = 16, use_dst_feats: bool = False, edge_feat_size: int = 0,
@@ -389,7 +392,9 @@ class GVPEdgeMessages(nn.Module):
               reduce=None):
         """Messages over a kNN pair list idx (B, K, k) into the other node set.
         anchor_is_src (kl): the anchor sends and the messages are summed onto
-        the gathered nodes; otherwise (lk) the gathered nodes send to the anchor.
+        the gathered nodes with a scatter-add (whose order on CUDA varies from
+        run to run: the kernel's route takes kl as a destination-major list
+        instead); otherwise (lk) the gathered nodes send to the anchor.
         `reduce` as in `dense` (kl only)."""
         b, K, k = idx.shape
         n_other = h_other.shape[1]

@@ -9,7 +9,11 @@ keeps every per-edge tensor on the SM.
 The kernel computes one edge type's three-GVP message chain (scalars
 S_WIDTH, vector channels V_WIDTH, bf16, no edge or destination features) on
 the valid slots of a destination-major list (idx, valid) (B, Nd, cap), and
-the per-destination sum or mean over them in f32. Its operands:
+the per-destination sum or mean over them in f32, in slot order. The GVP
+dynamics hands it a kk neighbor list and both directions of the kNN pairs
+(`ops/edge_sets.py::dst_major`): lk, each keypoint's ligand sources (cap
+kl_k), and kl, each ligand atom's keypoint senders (cap K, most slots
+padding, which the kernel skips with one ballot per 128). Its operands:
 
 - the node rows `a_src` (B, Ns, NODE_WIDTH) in the compute dtype: GVP0's
   per-node pieces, P = h_src @ to_feats_out[:S] and Q = v_src @ Wh[1:] (the

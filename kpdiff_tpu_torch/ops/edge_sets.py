@@ -5,7 +5,8 @@ An edge set joins source nodes to destination nodes of one batch:
 - a dense (B, Ns, Nd) bool Tensor: source s to destination d where set
   (ll, kl and lk on the kernel's route, a dense kk);
 - `NbrList(idx, valid)`: a destination-major (B, Nd, cap) list of source
-  indices (kk after compact_kk or with kk_layout 'nbr', the encoders' rr);
+  indices (kk after compact_kk or with kk_layout 'nbr', the encoders' rr,
+  a `PairList` in its destination-major form, `dst_major`);
   `KernelList`, a NbrList that the dynamics hands to a hand-written
   kernel (the EGNN edge kernel's list mode, the GVP message kernel), reads
   as one everywhere else;
@@ -53,10 +54,15 @@ class KernelList(NbrList):
     contiguous. Only the dynamics make one, where they take their kernel
     (models/dynamics_egnn.py::EGNNDynamics.on_kernel, the edge kernel's list
     mode in EGNNEdge; models/dynamics_gvp.py::GVPDynamics.on_kernel, the GVP
-    message kernel in GVPEdgeMessages); any other reader takes it as the
-    NbrList it is."""
+    message kernel in GVPEdgeMessages, for a kk list and both directions of
+    the kNN pairs); any other reader takes it as the NbrList it is."""
 
     __slots__ = ()
+
+    @classmethod
+    def of(cls, e: NbrList) -> "KernelList":
+        """The list `e` with its indices as int32, both tensors contiguous."""
+        return cls(e.idx.to(torch.int32).contiguous(), e.valid.contiguous())
 
 
 class PairList(NamedTuple):
@@ -130,6 +136,27 @@ def layout_name(e) -> str:
 def list_cap(e) -> int:
     """Slots per destination of a neighbor list; 0 for any other form."""
     return int(e.idx.shape[-1]) if isinstance(e, NbrList) else 0
+
+
+def dst_major(e: PairList, n_other: int) -> NbrList:
+    """The pairs as a destination-major list. Keypoints receiving (lk): the
+    pairs' own (idx, valid) (B, K, k). Keypoints sending (kl): each of the
+    other set's n_other nodes with every keypoint as a slot, (B, n_other, K),
+    idx[b, l, j] = j and valid[b, l, j] where keypoint j's pairs hold node l
+    in a valid slot. Built by comparison, with no scatter and no host read,
+    so its shapes are static and it captures into a CUDA graph; the slots
+    come in keypoint order, so a sum over them has one order. It holds the
+    pairs' edges as long as no keypoint holds a node in two valid slots
+    (kNN pairs do not)."""
+    if not isinstance(e, PairList):
+        raise TypeError(f"dst_major takes a PairList, not {type(e).__name__}")
+    if not e.anchor_is_src:
+        return NbrList(e.idx, e.valid)
+    b, k, _ = e.idx.shape
+    nodes = torch.arange(n_other, device=e.idx.device)
+    held = torch.any((e.idx[..., None] == nodes) & e.valid[..., None], dim=2)  # (B, K, n_other)
+    idx = torch.arange(k, dtype=e.idx.dtype, device=e.idx.device).expand(b, n_other, k)
+    return NbrList(idx, held.transpose(1, 2))
 
 
 def transpose(e):

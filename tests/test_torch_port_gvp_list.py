@@ -9,9 +9,9 @@ batch row without any, f32 within 1e-5 and bf16 within 2e-2 of the output's
 scale. The kernel's weight images round-trip. On CPU tensors GVPDynamics
 takes the plain route (the list and pairs counters count, the kernel's stay
 0); with the card faked (`dynamics_gvp.kernel_device`) it hands the kk list
-and the lk pairs on as KernelLists, which run the plain version here, and
-agrees with the plain route. The chain is the dynamics' (S 256, V 16, three
-GVPs) at a few nodes.
+and both directions of the kNN pairs on as KernelLists, which run the plain
+version here, and agrees bitwise with the plain route. The chain is the dynamics' (S 256, V 16, three GVPs) at a few
+nodes.
 
 On the card (marked `card`): python3 -m pytest --noconftest -m card
 tests/test_torch_port_gvp_list.py
@@ -202,16 +202,20 @@ def test_cpu_takes_the_plain_route(tracer):
         dyn(*args, **kw)
     c = tracer.snapshot()["counters"]
     assert c.get("dynamics.gvp_kk_route_list") == 1 and c.get("dynamics.gvp_lk_route_pairs") == 1
+    assert c.get("dynamics.gvp_kl_route_pairs") == 2  # every conv has kl
     assert c.get("dynamics.gvp_kk_route_kernel", 0) == 0 and c.get("dynamics.gvp_lk_route_kernel", 0) == 0
+    assert c.get("dynamics.gvp_kl_route_kernel", 0) == 0
     assert (gvp_message.launches, gvp_message.captured) == before
     assert c["gvp_message.launches"] == before[0]
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_faked_card_routes_kk_and_lk_through_the_kernel_entry(tracer, monkeypatch, dtype):
-    """With the card faked the route hands kk and lk on as KernelLists (in
-    bf16 only: an f32 chain is not the kernel's), and the result is the
-    plain route's (the entry runs the plain version on CPU tensors)."""
+    """With the card faked the route hands kl, lk and kk on as KernelLists
+    (in bf16 only: an f32 chain is not the kernel's), and the result is the
+    plain route's (the entry runs the plain version on CPU tensors), bitwise:
+    on the CPU the plain route's kl scatter-add and the list's sum both add
+    a ligand atom's messages in keypoint order."""
     dyn, args, kw = _dynamics_call(dtype)
     with torch.no_grad():
         ref = dyn(*args, **kw)
@@ -231,8 +235,10 @@ def test_faked_card_routes_kk_and_lk_through_the_kernel_entry(tracer, monkeypatc
     routed = dtype == "bfloat16"
     assert c.get("dynamics.gvp_kk_route_kernel", 0) == (1 if routed else 0)
     assert c.get("dynamics.gvp_lk_route_kernel", 0) == (1 if routed else 0)
+    assert c.get("dynamics.gvp_kl_route_kernel", 0) == (2 if routed else 0)
     assert c.get("dynamics.gvp_kk_route_list") == (2 if routed else 3)
-    assert len(calls) == (2 if routed else 0)  # conv0's lk and kk; conv1 (the last) has neither
+    assert c.get("dynamics.gvp_kl_route_pairs") == (4 if routed else 6)
+    assert len(calls) == (4 if routed else 0)  # kl in both convs, conv0's lk and kk; conv1 (the last) has neither
     assert all(isinstance(e, KernelList) and e.idx.dtype == torch.int32 for e in calls)
     assert all(torch.equal(a, r) for a, r in zip(got, ref))
 
